@@ -7,20 +7,28 @@ Run from the root of the repository, on a machine with one CUDA card:
 
 Phases, each printing one JSON line:
 
-  build       nvcc-builds both CUDA kernels from modular_slam_tpu_torch/csrc
-  K1          FAST score kernel vs its plain PyTorch version on the 8 pyramid
-              levels of a 640x480 frame and on a batch of 4 frames: exact
-  K2          Hamming 2-NN kernel (+ tile merge) vs the plain matcher at
-              Nq=512, L=16384: exact
+  build       nvcc-builds the three CUDA kernels from
+              modular_slam_tpu_torch/csrc, one nvcc per source, together
+  K1          FAST score kernel, one launch for all 8 pyramid levels of a
+              640x480 frame and for those of a batch of 4 frames, vs its
+              plain PyTorch version level by level: exact
+  K2          Hamming 2-NN kernel + merge kernel (2 launches) vs the plain
+              matcher, and the kernel's split triples vs their plain
+              version, at Nq=512, L=16384 and at a ragged Nq=500, L=16000
+              with a batch of 2 and a shared landmark operand: exact
   odometry    the odometry preset, SlamSystem(SlamConfig(), device="cuda"),
               over 48 rendered 640x480 frames: every frame tracked, ATE
               < 0.01 m, and the launch counts prove the path ran the kernels
+              (K1 once per frame: 48; K2 and its merge once per tracked
+              frame: 47 each)
   cpu_vs_gpu  the same 8 frames through the port on "cpu" (plain versions)
               and on "cuda" (kernels) with equally seeded samplers
   profile     per-stage host and device time, device busy time, idle
               share and top device ops per frame
-  kernels     every ported kernel: launches on the odometry path, error,
-              kernel and plain-version device times
+  kernels     every kernel: launches on the odometry path, error, kernel
+              and plain-version device times, the bound (bytes or
+              operations at the H100's published peaks), the share of it
+              reached, and the library call's time where one exists
 
 then the card's name and power limit, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -48,6 +56,14 @@ POSE_TOL_RAD = 1e-3
 TIMED_RUNS = 25
 LEVEL_SHAPES = [(480, 640), (400, 533), (333, 444), (278, 370),
                 (231, 309), (193, 257), (161, 214), (134, 179)]
+# Published peaks of one H100 SXM (dense): HBM, int8 tensor cores, f32
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
+# K1's arithmetic per pixel (csrc/fast_score.cu): 16 differences, 47
+# min/max for each of the two ladders, 2 to combine
+FAST_OPS_PER_PIXEL = 112
 
 
 def emit(obj) -> None:
@@ -112,83 +128,155 @@ def phase_build(kernels) -> None:
           "kernels": sorted(kernels.KERNELS)})
 
 
+def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: bytes moved once over the
+    memory rate, or operations over the peak rate for their type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_operations": n_ops}
+
+
 def phase_k1(torch, frames, cfg) -> dict:
     from modular_slam_tpu_torch.io.tum import rgb_to_luma
-    from modular_slam_tpu_torch.ops.fast import (fast_score_cuda,
+    from modular_slam_tpu_torch.ops.fast import (fast_score_levels,
                                                  fast_score_plain)
     from modular_slam_tpu_torch.ops.pyramid import build_pyramid
 
-    grays = [rgb_to_luma(torch.as_tensor(rgb, device="cuda"))
-             for rgb, _, _ in frames[:4]]
-    levels = build_pyramid(grays[0], cfg.detector)
-    check([tuple(x.shape) for x in levels] == LEVEL_SHAPES,
-          f"K1: pyramid shapes {[tuple(x.shape) for x in levels]}")
-    rows, max_err = [], 0.0
-    for img in levels + [torch.stack(grays)]:
-        got = fast_score_cuda(img)
-        ref = fast_score_plain(img)
+    pyrs = [build_pyramid(rgb_to_luma(torch.as_tensor(rgb, device="cuda")),
+                          cfg.detector) for rgb, _, _ in frames[:4]]
+    check([tuple(x.shape) for x in pyrs[0]] == LEVEL_SHAPES,
+          f"K1: pyramid shapes {[tuple(x.shape) for x in pyrs[0]]}")
+    batch = [torch.stack(lv) for lv in zip(*pyrs)]      # 8 x [4, H, W]
+    rows, max_err = {}, 0.0
+    for name, levels in (("frame", pyrs[0]), ("batch_of_4", batch)):
+        got = fast_score_levels(levels)
+        ref = [fast_score_plain(x) for x in levels]
         torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        inner = (got[..., 3:-3, 3:-3] != ref[..., 3:-3, 3:-3]).sum().item()
-        check(inner == 0, f"K1: {inner} scores differ inside the 3-px "
-                          f"border at {tuple(img.shape)}")
-        max_err = max(max_err, err)
-        rows.append({"shape": list(img.shape),
-                     "mismatch": int((got != ref).sum()),
-                     "mismatch_inside_3px": inner,
-                     "kernel": timings(torch, lambda: fast_score_cuda(img)),
-                     "plain": timings(torch, lambda: fast_score_plain(img))})
-    per_frame = {
-        "ms": sum(r["kernel"]["device_ms"] for r in rows[:8]),
-        "plain_ms": sum(r["plain"]["device_ms"] for r in rows[:8]),
-        "wall_ms": sum(r["kernel"]["wall_ms"] for r in rows[:8]),
-        "plain_wall_ms": sum(r["plain"]["wall_ms"] for r in rows[:8])}
-    emit({"phase": "K1", "tolerance": "exact inside a 3-px border",
-          "max_abs_err": max_err, "per_frame_8_levels":
-          per_frame, "shapes": rows})
-    return {"max_abs_err": max_err, **per_frame}
+        bad = [int((a != b).sum()) for a, b in zip(got, ref)]
+        check(not any(bad), f"K1: {bad} scores differ per level ({name})")
+        max_err = max([max_err] + [float((a - b).abs().max())
+                                   for a, b in zip(got, ref)])
+        rows[name] = {
+            "kernel": timings(torch, lambda: fast_score_levels(levels)),
+            "plain": timings(torch,
+                             lambda: [fast_score_plain(x) for x in levels])}
+    pixels = sum(h * w for h, w in LEVEL_SHAPES)
+    b = bound(8.0 * pixels, FAST_OPS_PER_PIXEL * pixels, F32_OPS_PER_S)
+    ms = rows["frame"]["kernel"]["device_ms"]
+    emit({"phase": "K1", "tolerance": "exact on every pixel",
+          "launches_per_frame": 1, "levels": LEVEL_SHAPES,
+          "max_abs_err": max_err, **rows, **b,
+          "share_of_bound": b["bound_ms"] / ms})
+    return {"max_abs_err": max_err, "ms": ms,
+            "plain_ms": rows["frame"]["plain"]["device_ms"],
+            "share_of_bound": b["bound_ms"] / ms, "library_ms": None, **b}
 
 
-def phase_k2(torch, cfg) -> dict:
-    from modular_slam_tpu_torch.ops.match import (hamming_2nn_tiles,
-                                                  match_descriptors,
-                                                  match_descriptors_plain)
-
-    g = torch.Generator().manual_seed(0)
-    Nq, L = cfg.detector.max_keypoints, cfg.map.max_landmarks
-    q = (torch.randint(0, 2, (Nq, 256), generator=g) * 2 - 1).to(torch.int8)
-    t = (torch.randint(0, 2, (L, 256), generator=g) * 2 - 1).to(torch.int8)
-    # planted near-duplicates (up to 8 flipped bits) so that real matches
-    # survive the ratio test
-    rows = torch.randperm(L, generator=g)[:Nq // 2]
-    t[rows] = q[:Nq // 2]
-    flips = torch.randint(0, 256, (Nq // 2, 8), generator=g)
+def _k2_problem(torch, seed: int, nq: int, nl: int, batch: int = 0):
+    """±1 rows with planted near-duplicates (up to 8 flipped bits, so that
+    real matches survive the ratio test), ~5 % invalid queries and ~10 %
+    invalid landmark rows.  batch > 0 gives [batch, nq] queries against
+    one shared landmark operand."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (batch, nq) if batch else (nq,)
+    q = (torch.randint(0, 2, (*shape, 256), generator=g) * 2 - 1).to(
+        torch.int8)
+    t = (torch.randint(0, 2, (nl, 256), generator=g) * 2 - 1).to(torch.int8)
+    rows = torch.randperm(nl, generator=g)[:nq // 2]
+    t[rows] = q.reshape(-1, nq, 256)[0, :nq // 2]
+    flips = torch.randint(0, 256, (nq // 2, 8), generator=g)
     t[rows[:, None], flips] *= -1
-    qv = torch.rand(Nq, generator=g) > 0.05
-    tv = torch.rand(L, generator=g) > 0.10      # ~10 % invalid rows
-    q, t, qv, tv = (x.cuda() for x in (q, t, qv, tv))
+    qv = torch.rand(shape, generator=g) > 0.05
+    tv = torch.rand(nl, generator=g) > 0.10
+    return tuple(x.cuda() for x in (q, qv, t, tv))
+
+
+def _check_k2(torch, q, qv, t, tv, cfg, label: str) -> dict:
+    """The fused path (K2 + merge) against the plain matcher, and K2's
+    split triples against their plain version: both exact."""
+    from modular_slam_tpu_torch.ops.match import (
+        hamming_2nn_splits, hamming_2nn_splits_plain, hamming_n_splits,
+        hamming_split_plan, match_descriptors, match_descriptors_plain)
 
     mk = match_descriptors(q, qv, t, tv, cfg.matcher)
     mp = match_descriptors_plain(q, qv, t, tv, cfg.matcher)
+    batch = q.shape[0] if q.dim() == 3 else 1
+    cps, S = hamming_split_plan(t.shape[-2], hamming_n_splits(
+        q.shape[-2], batch, q.device))
+    ks = hamming_2nn_splits(q, t, tv)
+    ps = hamming_2nn_splits_plain(q, t, tv, cps)
     torch.cuda.synchronize()
     v = mp.valid
-    check(torch.equal(mk.valid, mp.valid), "K2: valid masks differ")
-    check(torch.equal(mk.lm_slot[v], mp.lm_slot[v]), "K2: lm_slot differs")
-    check(torch.equal(mk.distance[v], mp.distance[v]), "K2: distance differs")
+    check(torch.equal(mk.valid, mp.valid), f"K2 {label}: valid masks differ")
+    check(torch.equal(mk.lm_slot[v], mp.lm_slot[v]),
+          f"K2 {label}: lm_slot differs")
+    check(torch.equal(mk.distance[v], mp.distance[v]),
+          f"K2 {label}: distance differs")
+    for name, a, b in zip(("best", "idx", "second"), ks, ps):
+        check(tuple(a.shape) == tuple(b.shape) and torch.equal(a, b),
+              f"K2 {label}: split {name} differs")
     n_valid = int(v.sum())
-    check(n_valid >= Nq // 4, f"K2: only {n_valid} matches survive")
-    max_err = float((mk.distance[v] - mp.distance[v]).abs().max())
-    kern = timings(torch, lambda: match_descriptors(q, qv, t, tv, cfg.matcher))
-    kern["kernel_only_device_ms"] = device_ms(
-        torch, lambda: hamming_2nn_tiles(q, t, tv), name="hamming_2nn")
-    plain = timings(torch, lambda: match_descriptors_plain(
-        q, qv, t, tv, cfg.matcher))
-    emit({"phase": "K2", "tolerance": "exact", "Nq": Nq, "L": L,
-          "valid_matches": n_valid,
-          "invalid_rows": int((~tv).sum()), "max_abs_err": max_err,
-          "kernel_plus_merge": kern, "plain": plain})
-    return {"max_abs_err": max_err, "ms": kern["device_ms"],
-            "plain_ms": plain["device_ms"]}
+    check(n_valid >= q.shape[-2] // 4, f"K2 {label}: only {n_valid} matches")
+    return {"shape": {"B": batch, "Nq": q.shape[-2], "L": t.shape[-2],
+                      "S": S, "chunks_per_split": cps},
+            "valid_matches": n_valid, "invalid_rows": int((~tv).sum()),
+            "max_abs_err": float((mk.distance[v] - mp.distance[v]).abs()
+                                 .max()),
+            "split_max_abs_err": max(
+                float((a - b).abs().max()) for a, b in
+                ((ks[0], ps[0]), (ks[2], ps[2])))}
+
+
+def phase_k2(torch, cfg) -> dict:
+    from modular_slam_tpu_torch.ops.match import (
+        _ratio_test, hamming_2nn_splits, hamming_2nn_splits_plain,
+        match_descriptors, match_descriptors_plain, merge_tiles)
+
+    Nq, L = cfg.detector.max_keypoints, cfg.map.max_landmarks
+    q, qv, t, tv = _k2_problem(torch, 0, Nq, L)
+    main = _check_k2(torch, q, qv, t, tv, cfg, "main")
+    ragged = _check_k2(torch, *_k2_problem(torch, 1, 500, 16000, batch=2),
+                       cfg, "ragged, batch of 2, shared landmarks")
+    S, cps = main["shape"]["S"], main["shape"]["chunks_per_split"]
+    splits = hamming_2nn_splits(q, t, tv)
+    m = cfg.matcher
+
+    def plain_merge():
+        best, idx, second = merge_tiles(*splits)
+        return _ratio_test(best, second, idx, qv, m)
+
+    both = timings(torch, lambda: match_descriptors(q, qv, t, tv, m))
+    k2 = {"ms": device_ms(torch, lambda: hamming_2nn_splits(q, t, tv),
+                          name="hamming_2nn"),
+          "plain_ms": device_ms(torch, lambda: hamming_2nn_splits_plain(
+              q, t, tv, cps))}
+    merge = {"ms": device_ms(torch, lambda: match_descriptors(
+        q, qv, t, tv, m), name="hamming_merge"),
+             "plain_ms": device_ms(torch, plain_merge)}
+    try:   # the distance product alone: the only library call near K2
+        k2["library_ms"] = device_ms(torch, lambda: torch._int_mm(q, t.t()))
+        k2["library_note"] = "torch._int_mm(q, t.t()): the product only"
+    except RuntimeError as e:
+        k2["library_ms"] = None
+        k2["library_note"] = f"torch._int_mm refused: {str(e)[:160]}"
+    merge["library_ms"] = None
+    plain = timings(torch, lambda: match_descriptors_plain(q, qv, t, tv, m))
+    triples = 12.0 * S * Nq
+    k2.update(bound(Nq * 256 + L * 256 + L + triples, 2.0 * Nq * L * 256,
+                    INT8_OPS_PER_S))
+    merge.update(bound(triples + Nq + 9.0 * Nq, 6.0 * S * Nq,
+                       F32_OPS_PER_S))
+    for k in (k2, merge):
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
+    k2["max_abs_err"] = max(main["split_max_abs_err"],
+                            ragged["split_max_abs_err"])
+    merge["max_abs_err"] = max(main["max_abs_err"], ragged["max_abs_err"])
+    emit({"phase": "K2", "tolerance": "exact", "main": main,
+          "ragged": ragged, "launches_per_match": 2,
+          "kernel_plus_merge": both, "plain": plain, "hamming_2nn": k2,
+          "hamming_merge": merge})
+    return k2, merge
 
 
 def _gt_array(poses):
@@ -227,13 +315,10 @@ def phase_odometry(torch, kernels, frames, poses, cfg) -> dict:
           == (cfg.detector.max_keypoints, 256), "odometry: feature shapes")
     ate = ate_rmse(est, _gt_array(poses))["rmse"]
     check(ate < ATE_BOUND_M, f"odometry: ATE {ate} m >= {ATE_BOUND_M} m")
-    k1_want = cfg.detector.n_levels * n
-    check(launches["fast_score"] == k1_want,
-          f"odometry: fast_score launched {launches['fast_score']} times, "
-          f"expected {k1_want}")
-    check(launches["hamming_2nn"] == n - 1,
-          f"odometry: hamming_2nn launched {launches['hamming_2nn']} times, "
-          f"expected {n - 1}")
+    want = {"fast_score": n, "hamming_2nn": n - 1, "hamming_merge": n - 1}
+    check(launches == want, f"odometry: launches {launches}, expected "
+                            f"{want} (K1 once per frame, K2 and its merge "
+                            f"once per tracked frame)")
     warm = wall[8:]
     emit({"phase": "odometry", "frames": n, "all_success": True,
           "ate_rmse_m": ate, "keyframes": system.n_keyframes,
@@ -358,18 +443,19 @@ def main() -> int:
 
     phase_build(kernels)
     k1 = phase_k1(torch, frames, cfg)
-    k2 = phase_k2(torch, cfg)
+    k2, merge = phase_k2(torch, cfg)
     launches, ms_per_frame = phase_odometry(torch, kernels, frames, poses,
                                             cfg)
     phase_cpu_vs_gpu(torch, frames[:N_CMP_FRAMES], cfg)
     phase_profile(torch, frames, cfg, ms_per_frame)
 
-    timing = {"fast_score": k1, "hamming_2nn": k2}
+    timing = {"fast_score": k1, "hamming_2nn": k2, "hamming_merge": merge}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound", "library_ms")
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source_relpath,
          "replaces": k.replaces, "launches": launches[k.name],
-         "max_abs_err": timing[k.name]["max_abs_err"],
-         "ms": timing[k.name]["ms"], "plain_ms": timing[k.name]["plain_ms"]}
+         **{key: timing[k.name][key] for key in keys}}
         for k in kernels.KERNELS.values()]})
 
     smi = subprocess.run(

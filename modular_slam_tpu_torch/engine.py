@@ -44,11 +44,21 @@ class SlamResult(enum.Enum):
     ERROR = 3
 
 
-def make_slam_step(cfg: SlamConfig, device="cpu") -> Callable:
+def _resolve_device(device) -> torch.device:
+    """The entry points run on the card unless the caller asks for the
+    CPU; with no CUDA device they raise instead of carrying on there."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r} but no CUDA device; pass "
+                           f"device='cpu' to run the plain versions")
+    return dev
+
+
+def make_slam_step(cfg: SlamConfig, device="cuda") -> Callable:
     """The per-frame engine step for a static config:
     slam_step(arena, state, gray, depth, time, sampler)
         -> (arena, state, result, features)."""
-    cam = camera_from_config(cfg.camera, device)
+    cam = camera_from_config(cfg.camera, _resolve_device(device))
 
     def slam_step(arena: MapArena, state: TrackState, gray: Tensor,
                   depth: Tensor, time: Tensor, sampler: Sampler):
@@ -64,16 +74,17 @@ class SlamSystem:
     """Host-side orchestration of the odometry preset: frame feed and
     trajectory collection.
 
-    `device` holds the map arena, the tracking state and every per-frame
-    tensor; on "cuda" the FAST and Hamming 2-NN kernels run, on "cpu"
-    their plain versions.  `sampler(valid, n_hyp) -> [n_hyp, 3]` draws the
+    `device` (default "cuda"; RuntimeError when there is no CUDA device)
+    holds the map arena, the tracking state and every per-frame tensor; on
+    "cuda" the FAST and Hamming 2-NN kernels run, on "cpu" their plain
+    versions.  `sampler(valid, n_hyp) -> [n_hyp, 3]` draws the
     RANSAC triplets, once per tracked frame; the default is a
     `MultinomialSampler(seed)`.
 
     Unlike the JAX engine, `enable_backend` defaults to False: local BA is
     not ported yet, and asking for it raises."""
 
-    def __init__(self, cfg: Optional[SlamConfig] = None, device="cpu",
+    def __init__(self, cfg: Optional[SlamConfig] = None, device="cuda",
                  seed: int = 0, enable_backend: bool = False,
                  enable_loop_closure: bool = False,
                  enable_relocalization: bool = False,
@@ -87,9 +98,7 @@ class SlamSystem:
         if enable_relocalization:
             raise NotImplementedError(_NOT_PORTED.format(
                 what="Relocalization (enable_relocalization)", item=3))
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("SlamSystem: device 'cuda' but no CUDA device")
+        self.device = _resolve_device(device)
         self.cfg = cfg or SlamConfig()
         self.cam = camera_from_config(self.cfg.camera, self.device)
         self.arena: MapArena = empty_arena(self.cfg.map, self.device)

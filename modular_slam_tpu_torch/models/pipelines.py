@@ -2,7 +2,8 @@
 
 Only "odometry" (tracking only) is ported; "slam" (local BA) and "full"
 (loop closure, relocalization) raise NotImplementedError naming their
-ROADMAP.md item.
+ROADMAP.md item.  Keyword arguments go to `SlamSystem`, whose `device`
+defaults to "cuda".
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """ORB-style feature detection over an image pyramid (counterpart of
 modular_slam_tpu/ops/detector.py).
 
-pyramid -> FAST score map per level (kernel K1 on the card) -> 3x3 NMS,
+pyramid -> FAST score maps of all levels (kernel K1 on the card, one
+launch) -> 3x3 NMS,
 border mask, low threshold -> per-cell threshold fallback -> per-cell
 top-1 -> global top-k -> 43x43 raw patch per keypoint -> IC orientation
 -> patch blur -> angle-binned BRIEF-256 -> level-0 coords + depth.
@@ -22,7 +23,8 @@ from modular_slam_tpu_torch.config import DetectorConfig
 from modular_slam_tpu_torch.ops.blur import blur_patches
 from modular_slam_tpu_torch.ops.brief import (BRIEF_PATCH, brief_from_patches,
                                               extract_patches)
-from modular_slam_tpu_torch.ops.fast import border_mask, fast_score, nms3x3
+from modular_slam_tpu_torch.ops.fast import (border_mask, fast_score_levels,
+                                             nms3x3)
 from modular_slam_tpu_torch.ops.orient import ic_angle_from_patches
 from modular_slam_tpu_torch.ops.pyramid import build_pyramid
 from modular_slam_tpu_torch.types import (Descriptors, Features, Keypoints,
@@ -96,9 +98,9 @@ def detect(gray: Tensor, depth: Tensor, cfg: DetectorConfig) -> Features:
     yx_all: List[Tensor] = []
     resp_all: List[Tensor] = []
     lvl_all: List[Tensor] = []
-    for lvl, img in enumerate(levels):
+    scores = fast_score_levels(levels)     # kernel K1: one launch
+    for lvl, (img, score) in enumerate(zip(levels, scores)):
         h, w = img.shape
-        score = fast_score(img)
         score = nms3x3(score) * border_mask(h, w, cfg.border, img.dtype, dev)
         score = torch.where(score > thr_low, score, torch.zeros_like(score))
         score = _cell_threshold_fallback(score, cfg.cell_size, thr_high)

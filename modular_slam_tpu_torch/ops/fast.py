@@ -1,11 +1,13 @@
 """FAST-9/16 corner scoring (counterpart of modular_slam_tpu/ops/fast.py
 and, for the kernel, ops/fast_pallas.py).
 
-`fast_score` is the entry point.  On a CUDA tensor it launches the
-hand-written kernel `csrc/fast_score.cu` (kernel K1, which replaces the
-Pallas kernel `fast_pallas.py::_fast_kernel`); on a CPU tensor it runs
-`fast_score_plain`, the roll-ladder formulation of the JAX package, which
-is also the kernel's oracle.  There is no fallback between the two.
+`fast_score_levels` (a list of images, the detector's pyramid) and
+`fast_score` (one image) are the entry points.  On CUDA tensors they
+launch the hand-written kernel `csrc/fast_score.cu` (kernel K1, which
+replaces the Pallas kernel `fast_pallas.py::_fast_kernel`), once for all
+the images; on CPU tensors they run `fast_score_plain`, the roll-ladder
+formulation of the JAX package, which is also the kernel's oracle.  There
+is no fallback between the two.
 
   d[k]   = I(p + circle[k]) - I(p)                  (16 rolled images)
   m9[k]  = min(d[k], ..., d[k+8])  circular
@@ -14,6 +16,9 @@ is also the kernel's oracle.  There is no fallback between the two.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,24 +53,78 @@ def fast_score_plain(img: Tensor) -> Tensor:
     return torch.clamp(torch.maximum(bright, dark), min=0.0)
 
 
-def fast_score_cuda(img: Tensor) -> Tensor:
-    """Kernel K1 on a [H, W] or [B, H, W] float32 CUDA tensor."""
+# csrc/fast_score.cu: output tile edge and the most levels one launch takes
+FAST_TILE = 32
+FAST_MAX_LEVELS = 16
+
+
+def fast_tile_table(shapes: Sequence[Tuple[int, int]]) -> List[int]:
+    """Kernel K1's launch geometry: the prefix of the levels' tile counts
+    (ceil(H/32) * ceil(W/32) each), n + 1 entries.  Block b of the launch
+    computes tile b - first[l] of the level l with first[l] <= b <
+    first[l + 1], tiles numbered row-major within a level."""
+    first = [0]
+    for h, w in shapes:
+        first.append(first[-1] + (-(-h // FAST_TILE)) * (-(-w // FAST_TILE)))
+    return first
+
+
+def _check_level(img: Tensor) -> None:
     if not img.is_cuda:
-        raise ValueError("fast_score_cuda takes a CUDA tensor")
+        raise ValueError("fast_score_levels takes CUDA tensors")
     if img.dtype != torch.float32:
         raise TypeError(f"fast_score: float32 expected, got {img.dtype}")
     if img.dim() not in (2, 3):
         raise ValueError(f"fast_score: [H, W] or [B, H, W], got {img.shape}")
     if not img.is_contiguous():
         raise ValueError("fast_score: contiguous input expected")
-    batched = img.dim() == 3
-    x = img if batched else img[None]
-    B, H, W = x.shape
-    out = torch.empty_like(x)
-    if B and H and W:
-        FAST_SCORE.launch(x.data_ptr(), out.data_ptr(), B, H, W,
-                          torch.cuda.current_stream(x.device).cuda_stream)
-    return out if batched else out[0]
+
+
+def fast_score_levels_cuda(levels: Sequence[Tensor]) -> List[Tensor]:
+    """Kernel K1: the score maps of every level in one launch.  Each
+    level is [H, W] or [B, H, W] float32 CUDA, contiguous, with one B for
+    all; at most FAST_MAX_LEVELS levels."""
+    if not 1 <= len(levels) <= FAST_MAX_LEVELS:
+        raise ValueError(f"fast_score: 1..{FAST_MAX_LEVELS} levels, got "
+                         f"{len(levels)}")
+    for img in levels:
+        _check_level(img)
+    xs = [img if img.dim() == 3 else img[None] for img in levels]
+    if len({x.shape[0] for x in xs}) != 1 or \
+            len({x.device for x in xs}) != 1:
+        raise ValueError("fast_score: levels differ in batch size or device")
+    outs = [torch.empty_like(x) for x in xs]
+    work = [(x, o) for x, o in zip(xs, outs) if x.numel()]
+    if work:
+        shapes = [tuple(x.shape[1:]) for x, _ in work]
+        n = len(work)
+        FAST_SCORE.launch(
+            (ctypes.c_void_p * n)(*(x.data_ptr() for x, _ in work)),
+            (ctypes.c_void_p * n)(*(o.data_ptr() for _, o in work)),
+            (ctypes.c_int * n)(*(h for h, _ in shapes)),
+            (ctypes.c_int * n)(*(w for _, w in shapes)),
+            (ctypes.c_int * (n + 1))(*fast_tile_table(shapes)),
+            n, xs[0].shape[0],
+            torch.cuda.current_stream(xs[0].device).cuda_stream)
+    return [o if img.dim() == 3 else o[0] for img, o in zip(levels, outs)]
+
+
+def fast_score_levels(levels: Sequence[Tensor]) -> List[Tensor]:
+    """FAST-9/16 score maps of a list of images (the pyramid's levels).
+
+    CUDA tensors: kernel K1, one launch for all.  CPU tensors: the plain
+    version, level by level."""
+    if levels and levels[0].is_cuda:
+        return fast_score_levels_cuda(levels)
+    for img in levels:
+        if img.device.type != "cpu":
+            raise ValueError(f"fast_score: no kernel for device {img.device}")
+    return [fast_score_plain(img) for img in levels]
+
+
+def fast_score_cuda(img: Tensor) -> Tensor:
+    """Kernel K1 on one [H, W] or [B, H, W] float32 CUDA tensor."""
+    return fast_score_levels_cuda([img])[0]
 
 
 def fast_score(img: Tensor) -> Tensor:
@@ -73,11 +132,7 @@ def fast_score(img: Tensor) -> Tensor:
     t > 0); score > t  <=>  FAST-9 corner at strict threshold t.
 
     CUDA tensor: kernel K1.  CPU tensor: the plain version."""
-    if img.is_cuda:
-        return fast_score_cuda(img)
-    if img.device.type != "cpu":
-        raise ValueError(f"fast_score: no kernel for device {img.device}")
-    return fast_score_plain(img)
+    return fast_score_levels([img])[0]
 
 
 def nms3x3(score: Tensor) -> Tensor:

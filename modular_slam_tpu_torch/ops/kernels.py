@@ -127,23 +127,33 @@ class CudaKernel:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _LL = ctypes.c_longlong
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_PI = ctypes.POINTER(ctypes.c_int)
 
 FAST_SCORE = CudaKernel(
-    "fast_score", "fast_score.cu", "mslam_fast_score",
-    # img, out, B, H, W, stream
-    [_P, _P, _I, _I, _I, _P],
+    "fast_score", "fast_score.cu", "mslam_fast_score_levels",
+    # srcs[n], dsts[n], H[n], W[n], first_tile[n + 1], n, B, stream
+    [_PP, _PP, _PI, _PI, _PI, _I, _I, _P],
     replaces="modular_slam_tpu/ops/fast_pallas.py:49")
 
 HAMMING_2NN = CudaKernel(
-    "hamming_2nn", "hamming_2nn.cu", "mslam_hamming_2nn_tiles",
-    # q, t, t_valid, best, idx, second, B, Nq, L, G,
+    "hamming_2nn", "hamming_2nn.cu", "mslam_hamming_2nn_splits",
+    # q, t, t_valid, best, idx, second, B, Nq, L, S, chunks per split,
     # q batch stride, t batch stride, t_valid batch stride, stream
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _P],
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _P],
     replaces="modular_slam_tpu/ops/match_pallas.py:61")
 
-KERNELS: Dict[str, CudaKernel] = {k.name: k for k in (FAST_SCORE,
-                                                       HAMMING_2NN)}
+HAMMING_MERGE = CudaKernel(
+    "hamming_merge", "hamming_merge.cu", "mslam_hamming_merge",
+    # best, idx, second, q_valid, lm_slot, distance, valid, B, S, Nq,
+    # q_valid batch stride, max_hamming, lowe_ratio, stream
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _F, _F, _P],
+    replaces="modular_slam_tpu/ops/match_pallas.py:182-196")
+
+KERNELS: Dict[str, CudaKernel] = {
+    k.name: k for k in (FAST_SCORE, HAMMING_2NN, HAMMING_MERGE)}
 
 
 def build_all() -> None:

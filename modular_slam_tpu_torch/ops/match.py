@@ -2,31 +2,39 @@
 (counterpart of modular_slam_tpu/ops/match.py and, for the kernel,
 ops/match_pallas.py).
 
-`match_descriptors` is the entry point.  On CUDA tensors it launches the
-hand-written kernel `csrc/hamming_2nn.cu` (kernel K2, which replaces the
-Pallas kernel `match_pallas.py::_tile_kernel`) and merges its per-chunk
-(best, argmin, second) triples with the plain epilogue of
-`match_descriptors_pallas`.  On CPU tensors it runs
-`match_descriptors_plain`, the full-matrix formulation of the JAX
-package, which is also the kernel's oracle.  There is no fallback
-between the two.
+`match_descriptors` is the entry point.  On CUDA tensors it launches two
+hand-written kernels: `csrc/hamming_2nn.cu` (kernel K2, which replaces the
+Pallas kernel `match_pallas.py::_tile_kernel`) computes a (best, first
+index, second) triple per landmark split and query on the int8 tensor
+cores, and `csrc/hamming_merge.cu` merges the triples and applies the
+ratio test (the XLA epilogue of `match_descriptors_pallas`,
+match_pallas.py:182-196).  On CPU tensors it runs
+`match_descriptors_plain`, the full-matrix formulation of the JAX package,
+which is also the kernels' oracle; `hamming_2nn_splits_plain`,
+`merge_tiles` and `_ratio_test` are the plain versions of the two kernels
+one by one.  There is no fallback between the two paths.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from modular_slam_tpu_torch.config import MatcherConfig
-from modular_slam_tpu_torch.ops.kernels import HAMMING_2NN
+from modular_slam_tpu_torch.ops.kernels import HAMMING_2NN, HAMMING_MERGE
 from modular_slam_tpu_torch.types import Matches
 
 Tensor = torch.Tensor
 
 _BIG = 1e9
-# landmarks per kernel output tile; equals kChunk in csrc/hamming_2nn.cu
-HAMMING_CHUNK = 512
+# landmarks per ring stage of kernel K2; equals kChunk in csrc/hamming_2nn.cu
+HAMMING_CHUNK = 128
+# queries per block of kernel K2 (kQB)
+HAMMING_QUERY_BLOCK = 128
+# chunks in one split: its columns are numbered in 16 bits (kMaxSplitColumns)
+HAMMING_MAX_SPLIT_CHUNKS = 512
 _NBITS = 256
 
 
@@ -62,72 +70,54 @@ def match_descriptors_plain(query_pm1: Tensor, query_valid: Tensor,
     return _ratio_test(best, second, best_idx, query_valid, cfg)
 
 
-def hamming_2nn_tiles(query_pm1: Tensor, train_pm1: Tensor,
-                      train_valid: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """Kernel K2: per landmark chunk of HAMMING_CHUNK rows and per query,
-    (best [..., G, Nq] f32, idx [..., G, Nq] i32, second [..., G, Nq] f32).
+def hamming_split_plan(n_train: int, n_splits: int) -> Tuple[int, int]:
+    """(chunks per split, S) for cutting L landmark rows into at most
+    `n_splits` runs of whole HAMMING_CHUNK-row chunks (but runs of at most
+    HAMMING_MAX_SPLIT_CHUNKS); split s covers rows [s * cps * 128,
+    (s + 1) * cps * 128) and none is empty."""
+    n_chunks = -(-n_train // HAMMING_CHUNK)
+    cps = min(-(-n_chunks // max(1, min(n_splits, n_chunks))),
+              HAMMING_MAX_SPLIT_CHUNKS)
+    return cps, -(-n_chunks // cps)
 
-    query_pm1 [Nq, 256] or [B, Nq, 256] int8 ±1; train_pm1 [L, 256] or
-    [B, L, 256] int8 ±1; train_valid [L] or [B, L] bool.  An unbatched
-    operand is shared by every batch element.  Any Nq and any L >= 1."""
-    for name, x in (("query", query_pm1), ("train", train_pm1),
-                    ("train_valid", train_valid)):
-        if not x.is_cuda:
-            raise ValueError(f"hamming_2nn: {name} must be a CUDA tensor")
-        if not x.is_contiguous():
-            raise ValueError(f"hamming_2nn: {name} must be contiguous")
-    if query_pm1.dtype != torch.int8 or train_pm1.dtype != torch.int8:
-        raise TypeError("hamming_2nn: int8 ±1 descriptors expected")
-    if train_valid.dtype != torch.bool:
-        raise TypeError("hamming_2nn: bool train_valid expected")
-    if query_pm1.shape[-1] != _NBITS or train_pm1.shape[-1] != _NBITS:
-        raise ValueError(f"hamming_2nn: {_NBITS}-element rows expected")
-    if query_pm1.dim() not in (2, 3) or train_pm1.dim() not in (2, 3):
-        raise ValueError("hamming_2nn: [N, 256] or [B, N, 256] expected")
-    if train_valid.dim() != train_pm1.dim() - 1 or \
-            train_valid.shape != train_pm1.shape[:-1]:
-        raise ValueError("hamming_2nn: train_valid must match train rows")
-    devs = {query_pm1.device, train_pm1.device, train_valid.device}
-    if len(devs) != 1:
-        raise ValueError(f"hamming_2nn: operands on several devices {devs}")
-    for x in (query_pm1, train_pm1):
-        if x.data_ptr() % 16:
-            raise ValueError("hamming_2nn: descriptors must be 16-byte "
-                             "aligned")
-    batched = query_pm1.dim() == 3 or train_pm1.dim() == 3
-    Bq = query_pm1.shape[0] if query_pm1.dim() == 3 else 1
-    Bt = train_pm1.shape[0] if train_pm1.dim() == 3 else 1
-    if Bq != Bt and 1 not in (Bq, Bt):
-        raise ValueError(f"hamming_2nn: batch sizes {Bq} and {Bt}")
-    B = max(Bq, Bt)
-    Nq = query_pm1.shape[-2]
-    L = train_pm1.shape[-2]
-    if L < 1:
-        raise ValueError("hamming_2nn: at least one landmark row expected")
-    G = -(-L // HAMMING_CHUNK)
-    q_bs = Nq * _NBITS if (query_pm1.dim() == 3 and Bq > 1) else 0
-    t_bs = L * _NBITS if (train_pm1.dim() == 3 and Bt > 1) else 0
-    tv_bs = L if (train_pm1.dim() == 3 and Bt > 1) else 0
-    dev = query_pm1.device
-    best = torch.empty((B, G, Nq), dtype=torch.float32, device=dev)
-    idx = torch.empty((B, G, Nq), dtype=torch.int32, device=dev)
-    second = torch.empty((B, G, Nq), dtype=torch.float32, device=dev)
-    if Nq and B:
-        HAMMING_2NN.launch(
-            query_pm1.data_ptr(), train_pm1.data_ptr(),
-            train_valid.data_ptr(), best.data_ptr(), idx.data_ptr(),
-            second.data_ptr(), B, Nq, L, G, q_bs, t_bs, tv_bs,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if not batched:
-        return best[0], idx[0], second[0]
-    return best, idx, second
+
+def hamming_n_splits(n_query: int, batch: int, device) -> int:
+    """Splits of L for kernel K2: enough blocks for about two per SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = max(1, -(-n_query // HAMMING_QUERY_BLOCK) * batch)
+    return max(1, math.ceil(2 * sms / blocks))
+
+
+def hamming_2nn_splits_plain(query_pm1: Tensor, train_pm1: Tensor,
+                             train_valid: Tensor, chunks_per_split: int,
+                             ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain version of kernel K2: per split of chunks_per_split *
+    HAMMING_CHUNK landmark rows and per query, (best [..., S, Nq] f32,
+    first index [..., S, Nq] i32, second [..., S, Nq] f32), where second
+    is the split's minimum with only the best column masked to 1e9."""
+    d = hamming_matrix(query_pm1, train_pm1)
+    d = torch.where(train_valid[..., None, :], d, torch.full_like(d, _BIG))
+    L = d.shape[-1]
+    w = chunks_per_split * HAMMING_CHUNK
+    S = -(-L // w)
+    d = torch.nn.functional.pad(d, (0, S * w - L), value=math.inf)
+    d = d.reshape(*d.shape[:-1], S, w)                  # [..., Nq, S, w]
+    arg = torch.argmin(d, dim=-1, keepdim=True)
+    best = torch.gather(d, -1, arg)[..., 0]
+    cols = torch.arange(w, device=d.device)
+    second = torch.amin(torch.where(cols == arg, torch.full_like(d, _BIG),
+                                    d), dim=-1)
+    idx = arg[..., 0] + torch.arange(S, device=d.device) * w
+    return (best.transpose(-1, -2), idx.to(torch.int32).transpose(-1, -2),
+            second.transpose(-1, -2))
 
 
 def merge_tiles(best_t: Tensor, idx_t: Tensor,
                 second_t: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """Per-tile top-2 [..., G, Nq] -> global (best, idx, second) [..., Nq]
-    (the epilogue of `match_descriptors_pallas`, match_pallas.py:182-189).
-    The first tile reaching the minimum wins, so its first index does."""
+    """Per-split top-2 [..., S, Nq] -> global (best, idx, second) [..., Nq]
+    (the epilogue of `match_descriptors_pallas`, match_pallas.py:182-189;
+    plain version of csrc/hamming_merge.cu with `_ratio_test`).  The first
+    split reaching the minimum wins, so its first index does."""
     g_star = torch.argmin(best_t, dim=-2, keepdim=True)       # [..., 1, Nq]
     best = torch.gather(best_t, -2, g_star)[..., 0, :]
     best_idx = torch.gather(idx_t, -2, g_star)[..., 0, :]
@@ -139,18 +129,123 @@ def merge_tiles(best_t: Tensor, idx_t: Tensor,
     return best, best_idx, second
 
 
+def _check_cuda(name: str, x: Tensor, dtype: torch.dtype) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"hamming_2nn: {name} must be a CUDA tensor")
+    if not x.is_contiguous():
+        raise ValueError(f"hamming_2nn: {name} must be contiguous")
+    if x.dtype != dtype:
+        raise TypeError(f"hamming_2nn: {name} must be {dtype}, got "
+                        f"{x.dtype}")
+
+
+def _batch(rows: Tensor) -> int:
+    """Batch size of [N, 256] (1) or [B, N, 256] descriptor rows."""
+    return rows.shape[0] if rows.dim() == 3 else 1
+
+
+def _launch_splits(query_pm1: Tensor, train_pm1: Tensor, train_valid: Tensor,
+                   n_splits: Optional[int]):
+    """Kernel K2 -> batched triples [B, S, Nq] and B."""
+    _check_cuda("query", query_pm1, torch.int8)
+    _check_cuda("train", train_pm1, torch.int8)
+    _check_cuda("train_valid", train_valid, torch.bool)
+    if query_pm1.shape[-1] != _NBITS or train_pm1.shape[-1] != _NBITS:
+        raise ValueError(f"hamming_2nn: {_NBITS}-element rows expected")
+    if query_pm1.dim() not in (2, 3) or train_pm1.dim() not in (2, 3):
+        raise ValueError("hamming_2nn: [N, 256] or [B, N, 256] expected")
+    if train_valid.shape != train_pm1.shape[:-1]:
+        raise ValueError("hamming_2nn: train_valid must match train rows")
+    devs = {query_pm1.device, train_pm1.device, train_valid.device}
+    if len(devs) != 1:
+        raise ValueError(f"hamming_2nn: operands on several devices {devs}")
+    for x in (query_pm1, train_pm1):
+        if x.data_ptr() % 16:
+            raise ValueError("hamming_2nn: descriptors must be 16-byte "
+                             "aligned")
+    Bq, Bt = _batch(query_pm1), _batch(train_pm1)
+    if Bq != Bt and 1 not in (Bq, Bt):
+        raise ValueError(f"hamming_2nn: batch sizes {Bq} and {Bt}")
+    B = max(Bq, Bt)
+    Nq = query_pm1.shape[-2]
+    L = train_pm1.shape[-2]
+    if L < 1:
+        raise ValueError("hamming_2nn: at least one landmark row expected")
+    dev = query_pm1.device
+    cps, S = hamming_split_plan(
+        L, n_splits or hamming_n_splits(Nq, B, dev))
+    best = torch.empty((B, S, Nq), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, S, Nq), dtype=torch.int32, device=dev)
+    second = torch.empty((B, S, Nq), dtype=torch.float32, device=dev)
+    if Nq and B:
+        HAMMING_2NN.launch(
+            query_pm1.data_ptr(), train_pm1.data_ptr(),
+            train_valid.data_ptr(), best.data_ptr(), idx.data_ptr(),
+            second.data_ptr(), B, Nq, L, S, cps,
+            Nq * _NBITS if Bq > 1 else 0, L * _NBITS if Bt > 1 else 0,
+            L if Bt > 1 else 0, torch.cuda.current_stream(dev).cuda_stream)
+    return best, idx, second, B
+
+
+def hamming_2nn_splits(query_pm1: Tensor, train_pm1: Tensor,
+                       train_valid: Tensor, n_splits: Optional[int] = None,
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Kernel K2 alone: the split triples (best, idx, second), each
+    [..., S, Nq], as `hamming_2nn_splits_plain` with the chunks per split
+    of `hamming_split_plan(L, n_splits)` (default: `hamming_n_splits`).
+
+    query_pm1 [Nq, 256] or [B, Nq, 256] int8 ±1; train_pm1 [L, 256] or
+    [B, L, 256] int8 ±1 (an unset row of zeros is allowed: the kernel
+    keys dot products of at most 256 in magnitude); train_valid [L] or
+    [B, L] bool.  An unbatched
+    operand is shared by every batch element.  Any Nq and any L >= 1."""
+    best, idx, second, _ = _launch_splits(query_pm1, train_pm1, train_valid,
+                                          n_splits)
+    if query_pm1.dim() == 2 and train_pm1.dim() == 2:
+        return best[0], idx[0], second[0]
+    return best, idx, second
+
+
+def match_descriptors_cuda(query_pm1: Tensor, query_valid: Tensor,
+                           train_pm1: Tensor, train_valid: Tensor,
+                           cfg: MatcherConfig,
+                           n_splits: Optional[int] = None) -> Matches:
+    """Kernels K2 and the merge: two launches, `Matches` written on the
+    card.  Shapes as `hamming_2nn_splits`; query_valid [Nq] or [B, Nq]
+    bool, like the query rows."""
+    _check_cuda("query_valid", query_valid, torch.bool)
+    if query_valid.shape != query_pm1.shape[:-1]:
+        raise ValueError("hamming_2nn: query_valid must match query rows")
+    best, idx, second, B = _launch_splits(query_pm1, train_pm1, train_valid,
+                                          n_splits)
+    S, Nq = best.shape[1], best.shape[2]
+    dev = best.device
+    lm_slot = torch.empty((B, Nq), dtype=torch.int32, device=dev)
+    distance = torch.empty((B, Nq), dtype=torch.float32, device=dev)
+    valid = torch.empty((B, Nq), dtype=torch.bool, device=dev)
+    if Nq and B:
+        HAMMING_MERGE.launch(
+            best.data_ptr(), idx.data_ptr(), second.data_ptr(),
+            query_valid.data_ptr(), lm_slot.data_ptr(), distance.data_ptr(),
+            valid.data_ptr(), B, S, Nq,
+            Nq if _batch(query_pm1) > 1 else 0, float(cfg.max_hamming),
+            float(cfg.lowe_ratio), torch.cuda.current_stream(dev).cuda_stream)
+    if query_pm1.dim() == 2 and train_pm1.dim() == 2:
+        lm_slot, distance, valid = lm_slot[0], distance[0], valid[0]
+    return Matches(lm_slot=lm_slot, distance=distance, valid=valid)
+
+
 def match_descriptors(query_pm1: Tensor, query_valid: Tensor,
                       train_pm1: Tensor, train_valid: Tensor,
                       cfg: MatcherConfig) -> Matches:
     """2-NN + ratio matches from query rows to train rows.
 
     Returns Matches(lm_slot = best train index, distance, valid); invalid
-    query/train rows never match.  CUDA tensors: kernel K2 + the tile
-    merge.  CPU tensors: the plain version."""
+    query/train rows never match.  CUDA tensors: kernel K2 + the merge
+    kernel.  CPU tensors: the plain version."""
     if query_pm1.is_cuda:
-        best, best_idx, second = merge_tiles(
-            *hamming_2nn_tiles(query_pm1, train_pm1, train_valid))
-        return _ratio_test(best, second, best_idx, query_valid, cfg)
+        return match_descriptors_cuda(query_pm1, query_valid, train_pm1,
+                                      train_valid, cfg)
     if query_pm1.device.type != "cpu":
         raise ValueError(f"match_descriptors: no kernel for device "
                          f"{query_pm1.device}")

@@ -67,7 +67,8 @@ def _assert_same_frame(k, jsys, jcode, tsys, tcode):
 
 def _run_both(cfg, frames, seed=0):
     jsys = JaxSlamSystem(cfg, seed=seed, enable_backend=False)
-    tsys = SlamSystem(cfg, sampler=JaxKeyReplay(jax.random.PRNGKey(seed)))
+    tsys = SlamSystem(cfg, device="cpu",
+                      sampler=JaxKeyReplay(jax.random.PRNGKey(seed)))
     for k, f in enumerate(frames):
         _assert_same_frame(k, jsys, jsys.process(*f), tsys, tsys.process(*f))
     return jsys, tsys
@@ -105,8 +106,9 @@ def test_odometry_matches_jax_on_plane_sequence_and_after_state_carry():
     # engine; one more frame must agree
     arena_np = jax.tree.map(np.asarray, jsys.arena)
     state_np = jax.tree.map(np.asarray, jsys.state)
-    carried = SlamSystem(cfg, sampler=JaxKeyReplay(jsys._key,
-                                                   at_first_frame=False))
+    carried = SlamSystem(cfg, device="cpu",
+                         sampler=JaxKeyReplay(jsys._key,
+                                              at_first_frame=False))
     carried.arena = port_state.arena_from_numpy(arena_np)
     carried.state = port_state.track_state_from_numpy(state_np)
     _assert_same_frame(8, jsys, jsys.process(*frames[8]), carried,
@@ -146,12 +148,13 @@ def test_unported_features_raise():
     for kw in ({"enable_backend": True}, {"enable_loop_closure": True},
                {"enable_relocalization": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SlamSystem(cfg, **kw)
+            SlamSystem(cfg, device="cpu", **kw)
     from modular_slam_tpu_torch.models import make_pipeline
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_pipeline("slam", cfg)
-    assert isinstance(make_pipeline("odometry", cfg), SlamSystem)
+        make_pipeline("slam", cfg, device="cpu")
+    assert isinstance(make_pipeline("odometry", cfg, device="cpu"),
+                      SlamSystem)
 
 
 def test_highwater_raises_until_lifecycle_is_ported():
@@ -163,4 +166,25 @@ def test_highwater_raises_until_lifecycle_is_ported():
     gen = PlaneSceneGenerator(cfg.camera, seed=2, texture_ppm=100.0)
     frame = next(gen.sequence(gen.trajectory(1)))
     with pytest.raises(NotImplementedError, match="highwater"):
-        SlamSystem(cfg).process(*frame)
+        SlamSystem(cfg, device="cpu").process(*frame)
+
+
+@pytest.mark.parametrize("entry", ["SlamSystem", "make_slam_step",
+                                   "make_pipeline"])
+def test_entry_points_default_to_the_card(entry):
+    """With no device the entry points take "cuda": on a machine with no
+    CUDA device they raise instead of running on the CPU."""
+    from modular_slam_tpu_torch.engine import make_slam_step
+    from modular_slam_tpu_torch.models import make_pipeline
+
+    cfg = tiny_test_config()
+    build = {"SlamSystem": lambda: SlamSystem(cfg),
+             "make_slam_step": lambda: make_slam_step(cfg),
+             "make_pipeline": lambda: make_pipeline("odometry", cfg)}[entry]
+    if torch.cuda.is_available():
+        made = build()
+        if isinstance(made, SlamSystem):
+            assert made.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()

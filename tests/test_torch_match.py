@@ -1,8 +1,11 @@
 """The port's Hamming 2-NN matcher and dedupe
 (modular_slam_tpu_torch/ops/match.py) against the JAX package: its Pallas
 kernel (interpreted off the TPU) and its XLA formulation.  On the CPU the
-port runs the plain version of kernel K2; the tile-merge epilogue that
-follows the CUDA kernel is fed the Pallas kernel's per-tile triples."""
+port runs the plain versions of kernel K2 and of its merge kernel: the
+per-split triples the CUDA kernel computes, built in plain torch on the
+kernel's split plan, and the merge of those triples (also fed the Pallas
+kernel's per-tile triples).  The kernels themselves are held against
+these plain versions by chip_smoke.py on the card."""
 
 import numpy as np
 import jax
@@ -108,12 +111,98 @@ def test_dedupe_matches_exact(n):
 
 
 def test_cpu_tensors_never_reach_the_kernel():
-    from modular_slam_tpu_torch.ops.kernels import HAMMING_2NN
+    from modular_slam_tpu_torch.ops.kernels import HAMMING_2NN, HAMMING_MERGE
 
-    before = HAMMING_2NN.launches
+    before = (HAMMING_2NN.launches, HAMMING_MERGE.launches)
     q, qv, t, tv = _problem(0, 8, 16, 4)
     _port(q, qv, t, tv)
-    assert HAMMING_2NN.launches == before
+    assert (HAMMING_2NN.launches, HAMMING_MERGE.launches) == before
+    q, qv, t, tv = (torch.from_numpy(x) for x in (q, qv, t, tv))
     with pytest.raises(ValueError):
-        tm.hamming_2nn_tiles(torch.from_numpy(q), torch.from_numpy(t),
-                             torch.from_numpy(tv))
+        tm.hamming_2nn_splits(q, t, tv)
+    with pytest.raises(ValueError):
+        tm.match_descriptors_cuda(q, qv, t, tv, CFG)
+
+
+def _split_problem(nq, nl, n_splits, seed=11):
+    """Planted matches, exact duplicates of the best row in a later split
+    (ties across splits: the first index must win, and second == best
+    rejects the match) and, with more than one split, a split whose rows
+    are all invalid."""
+    rng = np.random.default_rng(seed)
+    q = (rng.integers(0, 2, (nq, 256)) * 2 - 1).astype(np.int8)
+    t = (rng.integers(0, 2, (nl, 256)) * 2 - 1).astype(np.int8)
+    n_plant = min(nq, nl) // 2
+    rows = rng.choice(nl, n_plant, replace=False)
+    t[rows] = q[:n_plant]
+    flips = rng.integers(0, 256, (n_plant, 4))
+    t[rows[:, None], flips] *= -1
+    tv = rng.random(nl) > 0.1
+    cps, S = tm.hamming_split_plan(nl, n_splits)
+    w = cps * tm.HAMMING_CHUNK
+    for r in rows[: n_plant // 4]:       # duplicate into the next split
+        dup = r + w
+        if dup < nl:
+            t[dup] = t[r]
+            tv[dup] = tv[r]
+    if S > 1:
+        tv[w: 2 * w] = False
+    qv = rng.random(nq) > 0.05
+    return q, qv, t, tv, cps, S
+
+
+@pytest.mark.parametrize("n_splits", [1, 3, 32])
+@pytest.mark.parametrize("nq,nl", [(1, 1), (37, 640), (512, 16000)])
+def test_split_triples_merged_equal_jax(nq, nl, n_splits):
+    """The arithmetic of kernel K2 and its merge kernel: per-split triples
+    on the kernel's split plan (chunks of 128), merged in split order and
+    ratio-tested, equal the JAX matcher exactly."""
+    q, qv, t, tv, cps, S = _split_problem(nq, nl, n_splits)
+    assert (S - 1) * cps * tm.HAMMING_CHUNK < nl <= S * cps * tm.HAMMING_CHUNK
+    best_s, idx_s, second_s = tm.hamming_2nn_splits_plain(
+        torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(tv), cps)
+    assert tuple(best_s.shape) == (S, nq)
+    best, idx, second = tm.merge_tiles(best_s, idx_s, second_s)
+    got = tm._ratio_test(best, second, idx, torch.from_numpy(qv), CFG)
+    ref = jm.match_descriptors(*(jnp.asarray(x) for x in (q, qv, t, tv)),
+                               CFG)
+    _assert_same(ref, got)
+    np.testing.assert_array_equal(got.lm_slot.numpy(),
+                                  np.asarray(ref.lm_slot))
+    if nq > 1:
+        assert got.valid.sum() > 0
+
+
+def _decode(key, base):
+    """csrc/hamming_2nn.cu `to_distance` and the index of a key."""
+    dot = key >> 16
+    d = torch.where(dot == -32767, torch.full(dot.shape, 1e9),
+                    (256 - dot).to(torch.float32) * 0.5)
+    return d, (base + 65535 - (key & 0xFFFF)).to(torch.int32)
+
+
+@pytest.mark.parametrize("nq,nl,n_splits", [(1, 1, 1), (37, 640, 3),
+                                            (64, 1000, 32)])
+def test_split_keys_decode_to_plain_triples(nq, nl, n_splits):
+    """Kernel K2's epilogue arithmetic: per column the key dot * 65536 +
+    (65535 - column in the split) (invalid: dot = -32767; past L: INT_MIN),
+    the two largest keys of a split decode to the plain triple (best,
+    first index, second) exactly, ties included."""
+    q, _, t, tv, cps, S = _split_problem(nq, nl, n_splits, seed=12)
+    qt, tt, tvt = (torch.from_numpy(x) for x in (q, t, tv))
+    dot = (qt.long() @ tt.long().T)                        # [nq, nl]
+    w = cps * tm.HAMMING_CHUNK
+    col = torch.arange(nl)
+    rev = 65535 - (col % w)
+    key = torch.where(tvt, dot * 65536 + rev, -32767 * 65536 + rev)
+    key = torch.nn.functional.pad(key, (0, S * w - nl), value=-2**31)
+    key = key.reshape(nq, S, w)
+    floor = torch.full((nq, S, 1), -32767 * 65536)         # Top2.second
+    top = torch.topk(torch.cat([key, floor], -1), 2, dim=-1).values
+    assert top.abs().max() < 2**31
+    base = torch.arange(S)[None, :] * w
+    best, idx = _decode(top[..., 0], base)
+    second, _ = _decode(top[..., 1], base)
+    ref = tm.hamming_2nn_splits_plain(qt, tt, tvt, cps)
+    for got, want in zip((best, idx, second), ref):
+        assert torch.equal(got.transpose(0, 1), want)
