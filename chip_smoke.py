@@ -61,9 +61,19 @@ LEVEL_SHAPES = [(480, 640), (400, 533), (333, 444), (278, 370),
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
-# K1's arithmetic per pixel (csrc/fast_score.cu): 16 differences, 47
-# min/max for each of the two ladders, 2 to combine
-FAST_OPS_PER_PIXEL = 112
+# The H100 SXM's boost clock, and the f32 instructions one SM issues per
+# clock (CUDA C++ Programming Guide, throughput table, compute capability
+# 9.0): add 128, compare/minimum/maximum 64.  The 67 TFLOP/s above counts
+# an FMA as two operations; K1's min/max issue at a quarter of that.
+H100_BOOST_HZ = 1.98e9
+FADD_PER_SM_CLOCK = 128
+FMNMX_PER_SM_CLOCK = 64
+# K1's arithmetic (csrc/fast_score.cu): per pixel 16 differences and 8
+# compass compares; per ladder that the compass test lets run, 47
+# min/max and 1 to combine
+FAST_SUBS_PER_PIXEL = 16
+FAST_COMPARES_PER_PIXEL = 8
+FAST_MINMAX_PER_LADDER = 48
 
 
 def emit(obj) -> None:
@@ -137,6 +147,21 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
             "bound_bytes": n_bytes, "bound_operations": n_ops}
 
 
+def fast_ladder_runs(torch, levels) -> int:
+    """Ladders K1 runs on these images: at each pixel `bright` where two
+    compass pixels 4 apart on the circle are both brighter than the
+    centre, `dark` where two are both darker."""
+    from modular_slam_tpu_torch.ops.fast import FAST_CIRCLE
+
+    runs = 0
+    for img in levels:
+        d = torch.stack([torch.roll(img, (-dy, -dx), dims=(-2, -1)) - img
+                         for dy, dx in FAST_CIRCLE[::4]])
+        for side in (d > 0, d < 0):
+            runs += int((side & side.roll(-1, dims=0)).any(0).sum())
+    return runs
+
+
 def phase_k1(torch, frames, cfg) -> dict:
     from modular_slam_tpu_torch.io.tum import rgb_to_luma
     from modular_slam_tpu_torch.ops.fast import (fast_score_levels,
@@ -162,12 +187,21 @@ def phase_k1(torch, frames, cfg) -> dict:
             "plain": timings(torch,
                              lambda: [fast_score_plain(x) for x in levels])}
     pixels = sum(h * w for h, w in LEVEL_SHAPES)
-    b = bound(8.0 * pixels, FAST_OPS_PER_PIXEL * pixels, F32_OPS_PER_S)
+    runs = fast_ladder_runs(torch, pyrs[0])
+    n_subs = FAST_SUBS_PER_PIXEL * pixels
+    n_minmax = FAST_COMPARES_PER_PIXEL * pixels + FAST_MINMAX_PER_LADDER * runs
+    b = bound(8.0 * pixels, n_subs + n_minmax, F32_OPS_PER_S)
+    sm_clocks = torch.cuda.get_device_properties(0).multi_processor_count \
+        * H100_BOOST_HZ
+    issue_ms = 1e3 * (n_subs / (FADD_PER_SM_CLOCK * sm_clocks)
+                      + n_minmax / (FMNMX_PER_SM_CLOCK * sm_clocks))
     ms = rows["frame"]["kernel"]["device_ms"]
     emit({"phase": "K1", "tolerance": "exact on every pixel",
           "launches_per_frame": 1, "levels": LEVEL_SHAPES,
           "max_abs_err": max_err, **rows, **b,
-          "share_of_bound": b["bound_ms"] / ms})
+          "share_of_bound": b["bound_ms"] / ms,
+          "ladder_runs_per_pixel": runs / pixels,
+          "issue_bound_ms": issue_ms, "share_of_issue_bound": issue_ms / ms})
     return {"max_abs_err": max_err, "ms": ms,
             "plain_ms": rows["frame"]["plain"]["device_ms"],
             "share_of_bound": b["bound_ms"] / ms, "library_ms": None, **b}

@@ -9,11 +9,12 @@
 // k + j taken circularly.  A pixel is a FAST-9 corner at threshold t
 // exactly when score > t.
 //
-// What bounds it on this card: memory.  A 640x480 frame's 8 levels are
-// 950,532 pixels: 7.6 MB read and written once, 2.3 us at 3.35 TB/s, while
-// the 112 min/max/sub operations per pixel below take about 1.6 us at the
-// f32 rate.  At these sizes the launch itself costs as much as the work,
-// so the design removes launches first:
+// What bounds it on this card: a 640x480 frame's 8 levels are 950,532
+// pixels, 7.6 MB read and written once, 2.3 us at 3.35 TB/s.  The ladders
+// below are min/max, which an SM issues at 64 per clock, a quarter of the
+// f32 FMA rate: at that rate they take longer than the memory does
+// (chip_smoke.py reports both).  At these sizes the launch itself costs as
+// much as the work, so the design removes launches first:
 //   - one launch covers every level (up to kMaxLevels) and a batch of
 //     frames: the levels' tiles are numbered one after the other, the
 //     host passes each level's first tile index, and a block finds its

@@ -18,7 +18,7 @@ one by one.  There is no fallback between the two paths.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -144,8 +144,8 @@ def _batch(rows: Tensor) -> int:
     return rows.shape[0] if rows.dim() == 3 else 1
 
 
-def _launch_splits(query_pm1: Tensor, train_pm1: Tensor, train_valid: Tensor,
-                   n_splits: Optional[int]):
+def _launch_splits(query_pm1: Tensor, train_pm1: Tensor,
+                   train_valid: Tensor):
     """Kernel K2 -> batched triples [B, S, Nq] and B."""
     _check_cuda("query", query_pm1, torch.int8)
     _check_cuda("train", train_pm1, torch.int8)
@@ -172,8 +172,7 @@ def _launch_splits(query_pm1: Tensor, train_pm1: Tensor, train_valid: Tensor,
     if L < 1:
         raise ValueError("hamming_2nn: at least one landmark row expected")
     dev = query_pm1.device
-    cps, S = hamming_split_plan(
-        L, n_splits or hamming_n_splits(Nq, B, dev))
+    cps, S = hamming_split_plan(L, hamming_n_splits(Nq, B, dev))
     best = torch.empty((B, S, Nq), dtype=torch.float32, device=dev)
     idx = torch.empty((B, S, Nq), dtype=torch.int32, device=dev)
     second = torch.empty((B, S, Nq), dtype=torch.float32, device=dev)
@@ -188,19 +187,17 @@ def _launch_splits(query_pm1: Tensor, train_pm1: Tensor, train_valid: Tensor,
 
 
 def hamming_2nn_splits(query_pm1: Tensor, train_pm1: Tensor,
-                       train_valid: Tensor, n_splits: Optional[int] = None,
-                       ) -> Tuple[Tensor, Tensor, Tensor]:
+                       train_valid: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """Kernel K2 alone: the split triples (best, idx, second), each
     [..., S, Nq], as `hamming_2nn_splits_plain` with the chunks per split
-    of `hamming_split_plan(L, n_splits)` (default: `hamming_n_splits`).
+    of `hamming_split_plan(L, hamming_n_splits(Nq, B, device))`.
 
     query_pm1 [Nq, 256] or [B, Nq, 256] int8 ±1; train_pm1 [L, 256] or
     [B, L, 256] int8 ±1 (an unset row of zeros is allowed: the kernel
     keys dot products of at most 256 in magnitude); train_valid [L] or
     [B, L] bool.  An unbatched
     operand is shared by every batch element.  Any Nq and any L >= 1."""
-    best, idx, second, _ = _launch_splits(query_pm1, train_pm1, train_valid,
-                                          n_splits)
+    best, idx, second, _ = _launch_splits(query_pm1, train_pm1, train_valid)
     if query_pm1.dim() == 2 and train_pm1.dim() == 2:
         return best[0], idx[0], second[0]
     return best, idx, second
@@ -208,16 +205,14 @@ def hamming_2nn_splits(query_pm1: Tensor, train_pm1: Tensor,
 
 def match_descriptors_cuda(query_pm1: Tensor, query_valid: Tensor,
                            train_pm1: Tensor, train_valid: Tensor,
-                           cfg: MatcherConfig,
-                           n_splits: Optional[int] = None) -> Matches:
+                           cfg: MatcherConfig) -> Matches:
     """Kernels K2 and the merge: two launches, `Matches` written on the
     card.  Shapes as `hamming_2nn_splits`; query_valid [Nq] or [B, Nq]
     bool, like the query rows."""
     _check_cuda("query_valid", query_valid, torch.bool)
     if query_valid.shape != query_pm1.shape[:-1]:
         raise ValueError("hamming_2nn: query_valid must match query rows")
-    best, idx, second, B = _launch_splits(query_pm1, train_pm1, train_valid,
-                                          n_splits)
+    best, idx, second, B = _launch_splits(query_pm1, train_pm1, train_valid)
     S, Nq = best.shape[1], best.shape[2]
     dev = best.device
     lm_slot = torch.empty((B, Nq), dtype=torch.int32, device=dev)
