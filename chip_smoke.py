@@ -16,15 +16,33 @@ Phases, each printing one JSON line:
               matcher, and the kernel's split triples vs their plain
               version, at Nq=512, L=16384 and at a ragged Nq=500, L=16000
               with a batch of 2 and a shared landmark operand: exact
-  odometry    the odometry preset, SlamSystem(SlamConfig(), device="cuda"),
-              over 48 rendered 640x480 frames: every frame tracked, ATE
-              < 0.01 m, and the launch counts prove the path ran the kernels
-              (K1 once per frame: 48; K2 and its merge once per tracked
-              frame: 47 each)
-  cpu_vs_gpu  the same 8 frames through the port on "cpu" (plain versions)
-              and on "cuda" (kernels) with equally seeded samplers
+  odometry    the odometry preset, SlamSystem(SlamConfig(), device="cuda",
+              enable_backend=False), over 48 rendered 640x480 frames: every
+              frame tracked, ATE < 0.01 m, and the launch counts prove the
+              path ran the kernels (K1 once per frame: 48; K2 and its merge
+              once per tracked frame: 47 each)
+  cpu_vs_gpu  the same 8 frames through the odometry preset on "cpu" (plain
+              versions) and on "cuda" (kernels) with equally seeded samplers
   profile     per-stage host and device time, device busy time, idle
-              share and top device ops per frame
+              share and top device ops per odometry frame
+  slam        the slam preset, make_pipeline("slam", SlamConfig(),
+              device="cuda"): local BA after every keyframe, over the same
+              48 frames: every frame tracked, per-frame and keyframe ATE
+              < 0.01 m, launches 48 / 47 / 47, one BA call per keyframe;
+              ms/frame, ms per BA call and the window sizes
+  slam_fast_motion  the slam phase on 48 frames of the same scene at 3x
+              the motion per frame (the 48 frames above insert only 2
+              keyframes, so local BA runs twice there)
+  slam_async  the slam phase's run with ba_mode="async" (solve on the CPU,
+              merge at the next keyframe): every frame tracked, ATE, every
+              window merged; slam_async_fast_motion the same on the 3x
+              motion frames
+  ba_cpu_vs_gpu  the last keyframe's window of the slam_fast_motion run
+              solved on "cpu" and on "cuda", and the compact global BA of
+              its map on both
+  ba_profile  one local-BA call and one compact global-BA call of that
+              map under a CUDA trace: device busy ms, device ops, host
+              syncs and where they happen, LM iterations, top device ops
   kernels     every kernel: launches on the odometry path, error, kernel
               and plain-version device times, the bound (bytes or
               operations at the H100's published peaks), the share of it
@@ -39,8 +57,10 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -50,9 +70,16 @@ N_FRAMES = 48          # odometry phase
 N_CMP_FRAMES = 8       # cpu_vs_gpu phase
 STEP_T = (0.015, 0.005, -0.004)   # mixed translation + rotation steps
 STEP_ROT = (0.002, 0.006, 0.004)
+# slam_fast_motion: the same scene at 3x the motion per frame, where the
+# keyframe policy inserts ~8 keyframes in 48 frames instead of 2
+FAST_MOTION = 3.0
 ATE_BOUND_M = 0.01
 POSE_TOL_M = 1e-3
 POSE_TOL_RAD = 1e-3
+BA_POSE_TOL_M = 1e-4      # ba_cpu_vs_gpu
+BA_POSE_TOL_RAD = 1e-4
+BA_LM_TOL_M = 1e-3
+WARM_FRAMES = 8
 TIMED_RUNS = 25
 LEVEL_SHAPES = [(480, 640), (400, 533), (333, 444), (278, 370),
                 (231, 309), (193, 257), (161, 214), (134, 179)]
@@ -327,14 +354,9 @@ def phase_odometry(torch, kernels, frames, poses, cfg) -> dict:
     from modular_slam_tpu_torch.eval.ate import ate_rmse
     from modular_slam_tpu_torch.io.trajectory import trajectory_array
 
-    system = SlamSystem(cfg, device="cuda", seed=0)
+    system = SlamSystem(cfg, device="cuda", seed=0, enable_backend=False)
     kernels.reset_launch_counts()
-    codes, wall = [], []
-    for rgb, depth, ts in frames:
-        t0 = time.perf_counter()
-        codes.append(system.process(rgb, depth, ts))
-        torch.cuda.synchronize()
-        wall.append(time.perf_counter() - t0)
+    codes, wall = _run_frames(torch, system, frames)
     launches = kernels.launch_counts()
 
     n = len(frames)
@@ -353,15 +375,12 @@ def phase_odometry(torch, kernels, frames, poses, cfg) -> dict:
     check(launches == want, f"odometry: launches {launches}, expected "
                             f"{want} (K1 once per frame, K2 and its merge "
                             f"once per tracked frame)")
-    warm = wall[8:]
+    times = _frame_times(wall)
     emit({"phase": "odometry", "frames": n, "all_success": True,
           "ate_rmse_m": ate, "keyframes": system.n_keyframes,
           "landmarks": system.n_landmarks, "launches": launches,
-          "frames_per_s": len(warm) / sum(warm),
-          "ms_per_frame": 1e3 * sum(warm) / len(warm),
-          "ms_per_frame_median": 1e3 * statistics.median(warm),
-          "first_frame_ms": 1e3 * wall[0]})
-    return launches, 1e3 * sum(warm) / len(warm)
+          "frames_per_s": 1e3 / times["ms_per_frame"], **times})
+    return launches, times["ms_per_frame"]
 
 
 def _rot_angle(q1, q2) -> float:
@@ -379,7 +398,8 @@ def phase_cpu_vs_gpu(torch, frames, cfg) -> None:
 
     runs = {}
     for dev in ("cpu", "cuda"):
-        system = SlamSystem(cfg, device=dev, sampler=MultinomialSampler(0))
+        system = SlamSystem(cfg, device=dev, enable_backend=False,
+                            sampler=MultinomialSampler(0))
         for f in frames:
             system.process(*f)
         runs[dev] = [(bool(r.tracking_ok), bool(r.new_keyframe),
@@ -418,7 +438,7 @@ def phase_profile(torch, frames, cfg, ms_per_frame: float) -> None:
     from modular_slam_tpu_torch.ops.detector import detect
 
     n = 8
-    system = SlamSystem(cfg, device="cuda", seed=0)
+    system = SlamSystem(cfg, device="cuda", seed=0, enable_backend=False)
     for f in frames[:4]:
         system.process(*f)
     wall = {"upload": 0.0, "detect": 0.0, "track": 0.0}
@@ -457,6 +477,292 @@ def phase_profile(torch, frames, cfg, ms_per_frame: float) -> None:
               for e in events[:12]]})
 
 
+def _check_tf32(torch) -> None:
+    """The BA einsums and solves must run in full float32."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on: the BA phases need full float32")
+
+
+def _run_frames(torch, system, frames):
+    """process() every frame, each ended by a device sync; -> (codes,
+    wall seconds per frame)."""
+    codes, wall = [], []
+    for rgb, depth, ts in frames:
+        t0 = time.perf_counter()
+        codes.append(system.process(rgb, depth, ts))
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    return codes, wall
+
+
+def _check_track(system, codes, poses, label: str) -> dict:
+    """Every frame SUCCESS; per-frame and keyframe ATE under the bound
+    (keyframe rows hold the BA-corrected poses at the keyframe times)."""
+    import numpy as np
+
+    from modular_slam_tpu_torch.engine import SlamResult
+    from modular_slam_tpu_torch.eval.ate import ate_rmse
+    from modular_slam_tpu_torch.io.trajectory import trajectory_array
+
+    bad = [k for k, c in enumerate(codes) if c != SlamResult.SUCCESS]
+    check(not bad, f"{label}: frames {bad} not SUCCESS")
+    est = trajectory_array(system.trajectory)
+    kfs = system.keyframe_trajectory()
+    check(np.isfinite(est).all() and np.isfinite(kfs).all()
+          and kfs.shape == (system.n_keyframes, 8),
+          f"{label}: trajectory not finite or of the wrong shape")
+    gt = _gt_array(poses)
+    ate = ate_rmse(est, gt)["rmse"]
+    kf_ate = ate_rmse(kfs, gt)["rmse"]
+    check(ate < ATE_BOUND_M and kf_ate < ATE_BOUND_M,
+          f"{label}: ATE {ate} m, keyframe ATE {kf_ate} m >= {ATE_BOUND_M}")
+    return {"frames": len(codes), "all_success": True, "ate_rmse_m": ate,
+            "keyframe_ate_rmse_m": kf_ate, "keyframes": system.n_keyframes,
+            "landmarks": system.n_landmarks}
+
+
+def _frame_times(wall) -> dict:
+    warm = wall[WARM_FRAMES:]
+    return {"ms_per_frame": 1e3 * sum(warm) / len(warm),
+            "ms_per_frame_median": 1e3 * statistics.median(warm),
+            "first_frame_ms": 1e3 * wall[0]}
+
+
+def phase_slam(torch, kernels, frames, poses, cfg, odometry_ms=None,
+               phase: str = "slam"):
+    """The slam preset over the frames.  Each local-BA call is timed
+    between two device syncs, and the window each one solved is counted
+    on the device and read back at the end."""
+    from modular_slam_tpu_torch.models import make_pipeline
+
+    _check_tf32(torch)
+    system = make_pipeline("slam", cfg, device="cuda", seed=0)
+    ex = system._ensure_backend()
+    ba_ms, sizes = [], []
+    submit, extract = ex.submit, ex._extract
+
+    def timed_submit(arena, state, kf_slot):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = submit(arena, state, kf_slot)
+        torch.cuda.synchronize()
+        ba_ms.append((len(system.results) - 1, 1e3 * (time.perf_counter()
+                                                      - t0)))
+        return out
+
+    def counted_extract(arena, kf_slot):
+        prob = extract(arena, kf_slot)
+        sizes.append(torch.stack([prob.kf_ok.sum(), prob.lm_ok.sum(),
+                                  (prob.obs.w > 0).sum()]))
+        return prob
+
+    ex.submit, ex._extract = timed_submit, counted_extract
+    kernels.reset_launch_counts()
+    codes, wall = _run_frames(torch, system, frames)
+    launches = kernels.launch_counts()
+
+    out = _check_track(system, codes, poses, phase)
+    n = len(frames)
+    want = {"fast_score": n, "hamming_2nn": n - 1, "hamming_merge": n - 1}
+    check(launches == want, f"{phase}: launches {launches}, expected {want}")
+    new_kf = sum(bool(r.new_keyframe) for r in system.results)
+    check(ex.n_submitted == len(ba_ms) == new_kf == system.n_keyframes,
+          f"{phase}: {ex.n_submitted} BA calls, {new_kf} new keyframes")
+    windows = torch.stack(sizes).cpu().tolist()
+    bcfg = cfg.backend
+    warm_ba = [ms for frame, ms in ba_ms if frame >= WARM_FRAMES]
+    emit({"phase": phase, **out, "launches": launches,
+          **_frame_times(wall), "odometry_ms_per_frame": odometry_ms,
+          "ba_calls": ex.n_submitted, "new_keyframes": new_kf,
+          "ba_ms_per_call": sum(warm_ba) / len(warm_ba),
+          "ba_ms_per_call_median": statistics.median(warm_ba),
+          "ba_ms_first_call": ba_ms[0][1],
+          "ba_ms_by_frame": ba_ms,
+          "window_caps": [bcfg.local_kf_cap, bcfg.local_lm_cap,
+                          bcfg.local_obs_cap],
+          "windows_kf_lm_obs": windows,
+          "window_max": [max(w[i] for w in windows) for i in range(3)]})
+    return system
+
+
+def phase_slam_async(torch, frames, poses, cfg,
+                     phase: str = "slam_async") -> None:
+    from modular_slam_tpu_torch.models import make_pipeline
+
+    _check_tf32(torch)
+    system = make_pipeline("slam", cfg, device="cuda", seed=0,
+                           ba_mode="async")
+    try:
+        codes, wall = _run_frames(torch, system, frames)
+        system.flush_backend()
+        out = _check_track(system, codes, poses, phase)
+        ex = system._backend
+        check(ex.n_merged == ex.n_submitted == system.n_keyframes,
+              f"{phase}: {ex.n_merged} merged of {ex.n_submitted} "
+              f"submitted, {system.n_keyframes} keyframes")
+        emit({"phase": phase, **out, **_frame_times(wall),
+              "ba_submitted": ex.n_submitted, "ba_merged": ex.n_merged})
+    finally:
+        if system._backend is not None:
+            system._backend.close()
+
+
+def _arena_on(arena, device):
+    """A copy of the arena on `device` (BA updates an arena in place)."""
+    return type(arena)(*(x.to(device, copy=True) for x in arena))
+
+
+def _pose_diffs(torch, q_a, t_a, q_b, t_b, rows) -> tuple:
+    dt = float((t_a[rows].double() - t_b[rows].double()).abs().max())
+    dr = max(_rot_angle(a, b) for a, b in zip(q_a[rows].double(),
+                                               q_b[rows].double()))
+    return dt, dr
+
+
+def phase_ba_cpu_vs_gpu(torch, system, cfg) -> None:
+    """The slam run's last window, and a compact global BA of its map, on
+    "cpu" (deterministic sums) and on "cuda"."""
+    from modular_slam_tpu_torch.backend.ba import (
+        extract_window, global_ba_tier, local_ba_config,
+        make_global_ba_compact, solve_window)
+    from modular_slam_tpu_torch.backend.executor import _to
+    from modular_slam_tpu_torch.geometry.camera import camera_from_config
+
+    _check_tf32(torch)
+    bcfg = local_ba_config(cfg)
+    kf_slot = system.n_keyframes - 1
+    prob = extract_window(camera_from_config(cfg.camera, "cuda"),
+                          system.arena, kf_slot, bcfg)
+    sols = {"cuda": solve_window(camera_from_config(cfg.camera, "cuda"),
+                                 prob, bcfg),
+            "cpu": solve_window(camera_from_config(cfg.camera, "cpu"),
+                                _to(prob, "cpu"), bcfg)}
+    g, c = (_to(sols[d], "cpu") for d in ("cuda", "cpu"))
+    kf_ok, lm_ok = prob.kf_ok.cpu(), prob.lm_ok.cpu()
+    dt, dr = _pose_diffs(torch, g.kf_q, g.kf_t, c.kf_q, c.kf_t, kf_ok)
+    dl = float((g.lm_pos[lm_ok] - c.lm_pos[lm_ok]).abs().max())
+    check(dt <= BA_POSE_TOL_M and dr <= BA_POSE_TOL_RAD
+          and dl <= BA_LM_TOL_M, f"ba_cpu_vs_gpu: window differs by {dt} m, "
+                                 f"{dr} rad, landmarks {dl} m")
+    check(torch.equal(g.bad, c.bad), "ba_cpu_vs_gpu: window outliers differ")
+    local = {"max_dt_m": dt, "max_drot_rad": dr, "max_dlm_m": dl,
+             "outliers": int(c.bad.sum()),
+             "iterations": {"cpu": c.stats.n_iterations,
+                            "cuda": g.stats.n_iterations},
+             "final_cost": {"cpu": float(c.stats.final_cost),
+                            "cuda": float(g.stats.final_cost)},
+             "window_kf_lm_obs": [int(kf_ok.sum()), int(lm_ok.sum()),
+                                  int((prob.obs.w > 0).sum())]}
+
+    tier = global_ba_tier(system.arena)
+    runs = {d: make_global_ba_compact(cfg, tier, device=d)(
+        _arena_on(system.arena, d)) for d in ("cuda", "cpu")}
+    (ga, gs), (ca, cs) = ((_arena_on(a, "cpu"), st)
+                          for a, st in (runs["cuda"], runs["cpu"]))
+    dt, dr = _pose_diffs(torch, ga.kf_q, ga.kf_t, ca.kf_q, ca.kf_t,
+                         ca.kf_valid)
+    dl = float((ga.lm_pos[ca.lm_valid] - ca.lm_pos[ca.lm_valid]).abs().max())
+    check(dt <= BA_POSE_TOL_M and dr <= BA_POSE_TOL_RAD
+          and dl <= BA_LM_TOL_M, f"ba_cpu_vs_gpu: global BA differs by {dt} "
+                                 f"m, {dr} rad, landmarks {dl} m")
+    check(torch.equal(ga.obs_valid, ca.obs_valid),
+          "ba_cpu_vs_gpu: global BA obs_valid differs")
+    emit({"phase": "ba_cpu_vs_gpu", "tol_m": BA_POSE_TOL_M,
+          "tol_rad": BA_POSE_TOL_RAD, "lm_tol_m": BA_LM_TOL_M,
+          "local_window": local,
+          "global_compact": {
+              "tier": tier, "max_dt_m": dt, "max_drot_rad": dr,
+              "max_dlm_m": dl, "outliers": int(cs.n_outliers),
+              "iterations": {"cpu": cs.n_iterations,
+                             "cuda": gs.n_iterations},
+              "final_cost": {"cpu": float(cs.final_cost),
+                             "cuda": float(gs.final_cost)}}})
+
+
+def _traced(torch, fn):
+    """One call of fn under a CUDA-only trace, with host syncs counted by
+    the sync debug mode.  -> (fn's result, {wall ms ended by a device
+    sync, device busy ms, device ops, syncs, the top 8 device ops})."""
+    import traceback
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sites = collections.Counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    inside = [False]
+
+    def count_sync(message, category, filename, lineno, *rest):
+        """Count a sync raised inside fn at the innermost frame of this
+        repository."""
+        if not inside[0] or "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(root)]
+        at = ours[-1] if ours else None
+        sites[f"{os.path.relpath(at.filename, root)}:{at.lineno}" if at
+              else f"{filename}:{lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = count_sync
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("warn")
+            inside[0] = True
+            try:
+                out = fn()
+            finally:
+                inside[0] = False
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = sorted(prof.key_averages(), key=_device_us, reverse=True)
+    return out, {
+        "wall_ms": 1e3 * wall,
+        "device_busy_ms": sum(_device_us(e) for e in events) / 1e3,
+        "device_ops": sum(e.count for e in events),
+        "host_syncs": sum(sites.values()),
+        "host_sync_sites": dict(sites),
+        "top_device_ops": [{"name": e.key[:120], "calls": e.count,
+                            "ms": _device_us(e) / 1e3} for e in events[:8]]}
+
+
+def phase_ba_profile(torch, system, cfg) -> None:
+    """One local-BA call (extract, solve, merge: what the engine runs per
+    keyframe) on the slam run's last keyframe, and one compact global BA
+    of its map, each after an untraced warm-up call on a copy."""
+    from modular_slam_tpu_torch.backend.ba import (
+        extract_window, global_ba_tier, local_ba_config,
+        make_global_ba_compact, merge_window, solve_window)
+    from modular_slam_tpu_torch.geometry.camera import camera_from_config
+
+    _check_tf32(torch)
+    cam = camera_from_config(cfg.camera, "cuda")
+    bcfg = local_ba_config(cfg)
+    kf_slot = system.n_keyframes - 1
+
+    def local_ba(arena):
+        prob = extract_window(cam, arena, kf_slot, bcfg)
+        sol = solve_window(cam, prob, bcfg)
+        merge_window(arena, system.state, prob, sol)
+        return sol.stats
+
+    tier = global_ba_tier(system.arena)
+    gba = make_global_ba_compact(cfg, tier, device="cuda")
+    rows = {}
+    for name, fn in (("local_ba", local_ba),
+                     ("global_ba_compact", lambda a: gba(a)[1])):
+        fn(_arena_on(system.arena, "cuda"))
+        arena = _arena_on(system.arena, "cuda")
+        stats, row = _traced(torch, lambda: fn(arena))
+        rows[name] = {"lm_iterations": stats.n_iterations, **row}
+    emit({"phase": "ba_profile", "global_tier": tier, **rows})
+
+
 def main() -> int:
     import torch
 
@@ -474,6 +780,10 @@ def main() -> int:
     gen = PlaneSceneGenerator(cfg.camera, seed=0)
     poses = gen.trajectory(N_FRAMES, step_t=STEP_T, step_rot=STEP_ROT)
     frames = list(gen.sequence(poses))
+    fast_poses = gen.trajectory(
+        N_FRAMES, step_t=tuple(FAST_MOTION * x for x in STEP_T),
+        step_rot=tuple(FAST_MOTION * x for x in STEP_ROT))
+    fast_frames = list(gen.sequence(fast_poses))
 
     phase_build(kernels)
     k1 = phase_k1(torch, frames, cfg)
@@ -482,6 +792,14 @@ def main() -> int:
                                             cfg)
     phase_cpu_vs_gpu(torch, frames[:N_CMP_FRAMES], cfg)
     phase_profile(torch, frames, cfg, ms_per_frame)
+    phase_slam(torch, kernels, frames, poses, cfg, ms_per_frame)
+    slam = phase_slam(torch, kernels, fast_frames, fast_poses, cfg,
+                      phase="slam_fast_motion")
+    phase_slam_async(torch, frames, poses, cfg)
+    phase_slam_async(torch, fast_frames, fast_poses, cfg,
+                     phase="slam_async_fast_motion")
+    phase_ba_cpu_vs_gpu(torch, slam, cfg)
+    phase_ba_profile(torch, slam, cfg)
 
     timing = {"fast_score": k1, "hamming_2nn": k2, "hamming_merge": merge}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

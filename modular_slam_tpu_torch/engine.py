@@ -1,12 +1,13 @@
 """The SLAM engine: per-frame step + host-side system wrapper
-(counterpart of modular_slam_tpu/engine.py, odometry preset only).
+(counterpart of modular_slam_tpu/engine.py: the odometry and slam presets).
 
 `make_slam_step` builds the per-frame step — detect, then `track_frame` —
-and `SlamSystem.process` drives it with one frame at a time.  The parts of
-the JAX engine that later slices port (local BA, loop closure,
-relocalization, map lifecycle) raise NotImplementedError naming their
-ROADMAP.md item; none is ignored silently.  The chunked scan
-(`process_chunk*`, `run(chunk=...)`) has no entry point here yet.
+and `SlamSystem.process` drives it with one frame at a time, running local
+BA (backend/) every `ba_every` new keyframes.  The parts of the JAX engine
+that later slices port (loop closure, relocalization, map lifecycle) raise
+NotImplementedError naming their ROADMAP.md item; none is ignored
+silently.  The chunked scan (`process_chunk*`, `run(chunk=...)`) has no
+entry point here yet.
 """
 
 from __future__ import annotations
@@ -71,8 +72,8 @@ def make_slam_step(cfg: SlamConfig, device="cuda") -> Callable:
 
 
 class SlamSystem:
-    """Host-side orchestration of the odometry preset: frame feed and
-    trajectory collection.
+    """Host-side orchestration: frame feed, trajectory collection and the
+    local-BA backend.
 
     `device` (default "cuda"; RuntimeError when there is no CUDA device)
     holds the map arena, the tracking state and every per-frame tensor; on
@@ -81,17 +82,16 @@ class SlamSystem:
     RANSAC triplets, once per tracked frame; the default is a
     `MultinomialSampler(seed)`.
 
-    Unlike the JAX engine, `enable_backend` defaults to False: local BA is
-    not ported yet, and asking for it raises."""
+    As in the JAX engine, local BA runs every `ba_every` new keyframes
+    (`enable_backend`), inline (`ba_mode="sync"`) or solved on the CPU
+    and merged at the next keyframe (`"async"`, backend/executor.py)."""
 
     def __init__(self, cfg: Optional[SlamConfig] = None, device="cuda",
-                 seed: int = 0, enable_backend: bool = False,
-                 enable_loop_closure: bool = False,
+                 seed: int = 0, enable_backend: bool = True,
+                 ba_every: int = 1, enable_loop_closure: bool = False,
                  enable_relocalization: bool = False,
+                 ba_mode: str = "sync",
                  sampler: Optional[Sampler] = None):
-        if enable_backend:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="Local bundle adjustment (enable_backend)", item=1))
         if enable_loop_closure:
             raise NotImplementedError(_NOT_PORTED.format(
                 what="Loop closure (enable_loop_closure)", item=3))
@@ -108,6 +108,11 @@ class SlamSystem:
         self.trajectory: List[Tuple[float, Pose]] = []
         self.results: List[TrackResult] = []
         self.last_features: Optional[Features] = None
+        self.enable_backend = enable_backend
+        self.ba_every = ba_every
+        self.ba_mode = ba_mode  # "sync" (inline) | "async" (offloaded)
+        self._kf_since_ba = 0
+        self._backend = None  # BackendExecutor, built on first use
 
     def process(self, rgb: np.ndarray, depth: np.ndarray,
                 timestamp: float) -> SlamResult:
@@ -121,10 +126,39 @@ class SlamSystem:
         self.trajectory.append((timestamp, pose))
 
         if bool(result.new_keyframe):
+            if self.enable_backend:
+                self._kf_since_ba += 1
+                if self._kf_since_ba >= self.ba_every:
+                    self._run_local_ba(int(result.kf_slot))
+                    self._kf_since_ba = 0
             self._maybe_compact()
         if bool(result.tracking_ok):
             return SlamResult.SUCCESS
         return SlamResult.NO_CONSTRAINTS
+
+    def _ensure_backend(self):
+        if self._backend is None:
+            from modular_slam_tpu_torch.backend.executor import (
+                BackendExecutor)
+
+            self._backend = BackendExecutor(self.cfg, mode=self.ba_mode,
+                                            device=self.device)
+        return self._backend
+
+    def _run_local_ba(self, kf_slot: int) -> None:
+        self.arena, self.state = self._ensure_backend().submit(
+            self.arena, self.state, kf_slot)
+
+    def _harvest_ba(self) -> None:
+        """Merge an in-flight async local-BA solve, if any."""
+        if self._backend is not None:
+            self.arena, self.state, _ = self._backend.harvest(
+                self.arena, self.state)
+
+    def flush_backend(self) -> None:
+        """Complete all pending work — here, any in-flight async local BA
+        (end of a sequence, before reading the map out)."""
+        self._harvest_ba()
 
     def _maybe_compact(self) -> None:
         """The JAX engine culls, evicts and compacts the map when a pool
@@ -143,6 +177,24 @@ class SlamSystem:
                   f"landmarks {n_lm}, observations {n_obs})"), item=3))
 
     # -- introspection ------------------------------------------------------
+    def keyframe_trajectory(self) -> np.ndarray:
+        """[N, 8] TUM-format rows (t x y z qx qy qz qw) of the valid
+        keyframe poses, in slot order.  Unlike `.trajectory` (per-frame
+        poses as estimated at the time), this reflects the BA corrections
+        applied to the map after the fact."""
+        self.flush_backend()
+        valid = self.arena.kf_valid.cpu().numpy()
+        q = self.arena.kf_q.cpu().numpy()   # wxyz
+        t = self.arena.kf_t.cpu().numpy()
+        times = self.arena.kf_time.cpu().numpy()
+        idx = np.nonzero(valid)[0]
+        out = np.zeros((len(idx), 8), np.float64)
+        out[:, 0] = times[idx]
+        out[:, 1:4] = t[idx]
+        out[:, 4:7] = q[idx, 1:4]  # xyz
+        out[:, 7] = q[idx, 0]      # w
+        return out
+
     @property
     def n_keyframes(self) -> int:
         return int(self.arena.n_kf)

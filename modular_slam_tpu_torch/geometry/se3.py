@@ -39,11 +39,6 @@ def identity_pose(batch_shape=(), dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 
-def _sign_mask(like: Tensor) -> Tensor:
-    return torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=like.dtype,
-                        device=like.device)
-
-
 def quat_normalize(q: Tensor) -> Tensor:
     n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     q = q / torch.clamp(n, min=_EPS)
@@ -66,7 +61,9 @@ def quat_multiply(a: Tensor, b: Tensor) -> Tensor:
 
 
 def quat_conjugate(q: Tensor) -> Tensor:
-    return q * _sign_mask(q)
+    # a negation, not a product with a [1, -1, -1, -1] constant: building
+    # that on the card copies it from the host and waits for the copy
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def _cross(a: Tensor, b: Tensor) -> Tensor:

@@ -1,9 +1,9 @@
 """Pipeline presets (counterpart of modular_slam_tpu/models/pipelines.py).
 
-Only "odometry" (tracking only) is ported; "slam" (local BA) and "full"
-(loop closure, relocalization) raise NotImplementedError naming their
-ROADMAP.md item.  Keyword arguments go to `SlamSystem`, whose `device`
-defaults to "cuda".
+"odometry" (tracking only) and "slam" (tracking + local BA per keyframe)
+are ported; "full" (loop closure, relocalization) raises
+NotImplementedError naming its ROADMAP.md item.  Keyword arguments go to
+`SlamSystem`, whose `device` defaults to "cuda".
 """
 
 from __future__ import annotations
@@ -13,15 +13,20 @@ from typing import Callable, Dict, Optional
 from modular_slam_tpu_torch.config import SlamConfig
 from modular_slam_tpu_torch.engine import SlamSystem
 
-_LATER = {"slam": 1, "full": 3}
+_LATER = {"full": 3}
 
 
 def odometry_pipeline(cfg: Optional[SlamConfig] = None, **kw) -> SlamSystem:
     return SlamSystem(cfg or SlamConfig(), enable_backend=False, **kw)
 
 
+def slam_pipeline(cfg: Optional[SlamConfig] = None, **kw) -> SlamSystem:
+    return SlamSystem(cfg or SlamConfig(), enable_backend=True, **kw)
+
+
 PIPELINES: Dict[str, Callable[..., SlamSystem]] = {
     "odometry": odometry_pipeline,
+    "slam": slam_pipeline,
 }
 
 

@@ -21,9 +21,10 @@ import torch
 
 from modular_slam_tpu_torch.config import PnpConfig
 from modular_slam_tpu_torch.geometry.camera import Camera, project
-from modular_slam_tpu_torch.geometry.se3 import (Pose, _cross, _sign_mask,
+from modular_slam_tpu_torch.geometry.se3 import (Pose, _cross,
                                                  matrix_to_quat,
                                                  pose_compose, pose_inverse,
+                                                 quat_conjugate,
                                                  quat_normalize, quat_rotate,
                                                  quat_to_matrix, se3_exp)
 
@@ -89,7 +90,7 @@ def _reproj_errors(cam: Camera, pose: Pose, pts_world: Tensor,
                    uv: Tensor) -> tuple:
     """Squared pixel errors, positive-depth mask and predicted camera
     depth; a batch of poses [H, 4]/[H, 3] gives [H, N]."""
-    qi = quat_normalize(pose.q) * _sign_mask(pose.q)
+    qi = quat_conjugate(quat_normalize(pose.q))
     pc = quat_rotate(qi[..., None, :], pts_world - pose.t[..., None, :])
     uv_hat = project(cam, pc)
     err2 = torch.sum((uv_hat - uv) ** 2, dim=-1)
