@@ -14,8 +14,11 @@ Phases, each printing one JSON line:
               plain PyTorch version level by level: exact
   K2          Hamming 2-NN kernel + merge kernel (2 launches) vs the plain
               matcher, and the kernel's split triples vs their plain
-              version, at Nq=512, L=16384 and at a ragged Nq=500, L=16000
-              with a batch of 2 and a shared landmark operand: exact
+              version, at Nq=512, L=16384, at a ragged Nq=500, L=16000
+              with a batch of 2 and a shared landmark operand, and at loop
+              verification's shape: 512 shared queries, 16384 shared rows,
+              3 masks (one empty, one over the first 512 rows): exact on
+              every entry
   odometry    the odometry preset, SlamSystem(SlamConfig(), device="cuda",
               enable_backend=False), over 48 rendered 640x480 frames: every
               frame tracked, ATE < 0.01 m, and the launch counts prove the
@@ -39,14 +42,39 @@ Phases, each printing one JSON line:
               motion frames
   ba_cpu_vs_gpu  the last keyframe's window of the slam_fast_motion run
               solved on "cpu" and on "cuda", and the compact global BA of
-              its map on both
+              its map on both: at the production budget held on its cost,
+              converged (200 CG steps, 10 LM iterations) on its poses
   ba_profile  one local-BA call and one compact global-BA call of that
               map under a CUDA trace: device busy ms, device ops, host
               syncs and where they happen, LM iterations, top device ops
-  kernels     every kernel: launches on the odometry path, error, kernel
-              and plain-version device times, the bound (bytes or
-              operations at the H100's published peaks), the share of it
-              reached, and the library call's time where one exists
+  full        the full preset, make_pipeline("full", ...), with the loop
+              benchmark's flagship config (K=256 / L=16384 / O=131072,
+              640x480) over 96 frames, two laps of a 1.2 m circle with 3 cm
+              depth noise: every frame tracked, >= 1 loop closure, no false
+              positive (the verified query position within 0.35 m of the
+              ground truth), closures <= global BAs <= 2 x closures, every
+              global BA ending at no higher cost; K2 and its merge launched
+              once per tracked frame, loop verification and relocalization
+              attempt; ms/frame, closure latency, keyframes, frame and
+              keyframe ATE, and the keyframe ATE of the slam preset on the
+              same frames (loop detection off); then a second pass with
+              `profile=True` over the first lap (which holds the closure)
+              for the per-stage closure ms
+  lifecycle   the first lap of those frames through the full preset with
+              a 32-keyframe pool: >= 1 compaction, every frame tracked
+  relocalize  the kidnap of tests/test_engine_full.py:95 at 640x480: 14
+              steps of 0.5 m (12 leave the first view in reach of the
+              tracker at this width), then the first frame again: >= 1
+              relocalization, the position recovered within 0.05 m
+  pgo_cpu_vs_gpu  the full run's last pose-graph optimization (float64,
+              as the loop pipeline solves it) on "cpu" and on "cuda",
+              within 1e-4, the same in float32 beside it, and one traced
+              call on the card
+  kernels     every kernel: launches on the full path (and by path),
+              error, kernel and plain-version device times, the bound
+              (bytes or operations at the H100's published peaks), the
+              share of it reached, and the library call's time where one
+              exists
 
 then the card's name and power limit, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -79,7 +107,19 @@ POSE_TOL_RAD = 1e-3
 BA_POSE_TOL_M = 1e-4      # ba_cpu_vs_gpu
 BA_POSE_TOL_RAD = 1e-4
 BA_LM_TOL_M = 1e-3
+GBA_COST_RTOL = 1e-4      # ba_cpu_vs_gpu, global BA at the production budget
 WARM_FRAMES = 8
+# full / lifecycle phases: bench.py's flagship loop benchmark
+LOOP_FRAMES_PER_LAP = 48
+LOOP_RADIUS_M = 1.2
+LOOP_DEPTH_NOISE_M = 0.03
+CLOSURE_TRUE_M = 0.35       # bench.py _score_closures: a true positive
+LIFECYCLE_MAX_KEYFRAMES = 32
+RELOC_STEPS = 14
+RELOC_STEP_M = 0.5
+RELOC_TOL_M = 0.05
+PGO_POSE_TOL = 1e-4         # pgo_cpu_vs_gpu (m and rad)
+PGO_COST_RTOL = 1e-4
 TIMED_RUNS = 25
 LEVEL_SHAPES = [(480, 640), (400, 533), (333, 444), (278, 370),
                 (231, 309), (193, 257), (161, 214), (134, 179)]
@@ -139,18 +179,31 @@ def _device_us(event) -> float:
 def device_ms(torch, fn, runs: int = TIMED_RUNS, name: str = "") -> float:
     """Device time of one call of fn: the sum of its kernels' times in a
     torch.profiler trace of `runs` calls (only kernels whose name holds
-    `name`, when given), divided by `runs`."""
+    `name`, when given), divided by `runs`.  A trace that holds no such
+    kernel (the tracer drops a session's events now and then) is taken
+    again, twice at most; then fn is timed with CUDA events around the
+    `runs` calls instead, which counts all of its kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_device_us(e) for e in prof.key_averages()
-                if name in e.key)
-    return total / runs / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(_device_us(e) for e in prof.key_averages()
+                    if name in e.key)
+        if total > 0:
+            return total / runs / 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
 
 
 def timings(torch, fn, name: str = "") -> dict:
@@ -262,17 +315,19 @@ def _check_k2(torch, q, qv, t, tv, cfg, label: str) -> dict:
 
     mk = match_descriptors(q, qv, t, tv, cfg.matcher)
     mp = match_descriptors_plain(q, qv, t, tv, cfg.matcher)
-    batch = q.shape[0] if q.dim() == 3 else 1
+    batch = max(q.shape[0] if q.dim() == 3 else 1,
+                tv.shape[0] if tv.dim() == 2 else 1)
     cps, S = hamming_split_plan(t.shape[-2], hamming_n_splits(
         q.shape[-2], batch, q.device))
     ks = hamming_2nn_splits(q, t, tv)
     ps = hamming_2nn_splits_plain(q, t, tv, cps)
     torch.cuda.synchronize()
     v = mp.valid
+    # every entry, the rejected ones too: callers gather with lm_slot
     check(torch.equal(mk.valid, mp.valid), f"K2 {label}: valid masks differ")
-    check(torch.equal(mk.lm_slot[v], mp.lm_slot[v]),
+    check(torch.equal(mk.lm_slot, mp.lm_slot.to(torch.int32)),
           f"K2 {label}: lm_slot differs")
-    check(torch.equal(mk.distance[v], mp.distance[v]),
+    check(torch.equal(mk.distance, mp.distance),
           f"K2 {label}: distance differs")
     for name, a, b in zip(("best", "idx", "second"), ks, ps):
         check(tuple(a.shape) == tuple(b.shape) and torch.equal(a, b),
@@ -299,6 +354,22 @@ def phase_k2(torch, cfg) -> dict:
     main = _check_k2(torch, q, qv, t, tv, cfg, "main")
     ragged = _check_k2(torch, *_k2_problem(torch, 1, 500, 16000, batch=2),
                        cfg, "ragged, batch of 2, shared landmarks")
+    # loop verification: the same queries and rows under top_k masks, as
+    # a young map gives them: a random 90 %, none (a candidate keyframe
+    # with no landmark), the first 512 rows (splits with no valid row)
+    g = torch.Generator().manual_seed(2)
+    masks = torch.zeros((3, L), dtype=torch.bool)
+    masks[0] = torch.rand(L, generator=g) < 0.9
+    masks[2, :512] = True
+    masks = masks.cuda() & tv
+    per_mask = _check_k2(torch, q, qv, t, masks, cfg,
+                         "3 masks over shared queries and rows")
+    per_mask.update({
+        "ms": device_ms(torch, lambda: match_descriptors(q, qv, t, masks,
+                                                         cfg.matcher)),
+        "plain_ms": device_ms(torch, lambda: match_descriptors_plain(
+            q, qv, t, masks, cfg.matcher)),
+        "launches_per_match": 2})
     S, cps = main["shape"]["S"], main["shape"]["chunks_per_split"]
     splits = hamming_2nn_splits(q, t, tv)
     m = cfg.matcher
@@ -331,10 +402,12 @@ def phase_k2(torch, cfg) -> dict:
     for k in (k2, merge):
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     k2["max_abs_err"] = max(main["split_max_abs_err"],
-                            ragged["split_max_abs_err"])
-    merge["max_abs_err"] = max(main["max_abs_err"], ragged["max_abs_err"])
+                            ragged["split_max_abs_err"],
+                            per_mask["split_max_abs_err"])
+    merge["max_abs_err"] = max(main["max_abs_err"], ragged["max_abs_err"],
+                               per_mask["max_abs_err"])
     emit({"phase": "K2", "tolerance": "exact", "main": main,
-          "ragged": ragged, "launches_per_match": 2,
+          "ragged": ragged, "per_mask": per_mask, "launches_per_match": 2,
           "kernel_plus_merge": both, "plain": plain, "hamming_2nn": k2,
           "hamming_merge": merge})
     return k2, merge
@@ -624,6 +697,8 @@ def _pose_diffs(torch, q_a, t_a, q_b, t_b, rows) -> tuple:
 def phase_ba_cpu_vs_gpu(torch, system, cfg) -> None:
     """The slam run's last window, and a compact global BA of its map, on
     "cpu" (deterministic sums) and on "cuda"."""
+    import dataclasses
+
     from modular_slam_tpu_torch.backend.ba import (
         extract_window, global_ba_tier, local_ba_config,
         make_global_ba_compact, solve_window)
@@ -656,11 +731,31 @@ def phase_ba_cpu_vs_gpu(torch, system, cfg) -> None:
              "window_kf_lm_obs": [int(kf_ok.sum()), int(lm_ok.sum()),
                                   int((prob.obs.w > 0).sum())]}
 
+    # global BA.  At the production budget (24 CG steps, early stop) its
+    # poses are not determined to 1e-4: two runs on the card differ by
+    # ~5e-4 m at equal cost (a flat direction the CG steps leave
+    # unsolved; PERF.md, Findings), so that solve is held on its cost, and the
+    # poses on a converged solve (200 CG steps, 10 LM iterations)
     tier = global_ba_tier(system.arena)
-    runs = {d: make_global_ba_compact(cfg, tier, device=d)(
-        _arena_on(system.arena, d)) for d in ("cuda", "cpu")}
-    (ga, gs), (ca, cs) = ((_arena_on(a, "cpu"), st)
-                          for a, st in (runs["cuda"], runs["cpu"]))
+    converged = dataclasses.replace(cfg, backend=dataclasses.replace(
+        cfg.backend, gba_cg_iters=200, gba_early_stop_rtol=None))
+    prod, runs = {}, {}
+    for d in ("cuda", "cpu"):
+        a, st = make_global_ba_compact(cfg, tier, device=d)(
+            _arena_on(system.arena, d))
+        prod[d] = (_arena_on(a, "cpu"), st)
+        a, st = make_global_ba_compact(converged, tier, device=d)(
+            _arena_on(system.arena, d))
+        runs[d] = (_arena_on(a, "cpu"), st)
+    (pga, pgs), (pca, pcs) = prod["cuda"], prod["cpu"]
+    prod_dt, prod_dr = _pose_diffs(torch, pga.kf_q, pga.kf_t, pca.kf_q,
+                                   pca.kf_t, pca.kf_valid)
+    prod_rel = abs(float(pgs.final_cost) - float(pcs.final_cost)) / float(
+        pcs.final_cost)
+    check(prod_rel <= GBA_COST_RTOL, f"ba_cpu_vs_gpu: global BA costs "
+                                     f"{float(pgs.final_cost)} (cuda), "
+                                     f"{float(pcs.final_cost)} (cpu)")
+    (ga, gs), (ca, cs) = runs["cuda"], runs["cpu"]
     dt, dr = _pose_diffs(torch, ga.kf_q, ga.kf_t, ca.kf_q, ca.kf_t,
                          ca.kf_valid)
     dl = float((ga.lm_pos[ca.lm_valid] - ca.lm_pos[ca.lm_valid]).abs().max())
@@ -672,7 +767,14 @@ def phase_ba_cpu_vs_gpu(torch, system, cfg) -> None:
     emit({"phase": "ba_cpu_vs_gpu", "tol_m": BA_POSE_TOL_M,
           "tol_rad": BA_POSE_TOL_RAD, "lm_tol_m": BA_LM_TOL_M,
           "local_window": local,
-          "global_compact": {
+          "global_compact_production": {
+              "tier": tier, "max_dt_m": prod_dt, "max_drot_rad": prod_dr,
+              "cost_rel_diff": prod_rel, "cost_rtol": GBA_COST_RTOL,
+              "iterations": {"cpu": pcs.n_iterations,
+                             "cuda": pgs.n_iterations},
+              "final_cost": {"cpu": float(pcs.final_cost),
+                             "cuda": float(pgs.final_cost)}},
+          "global_compact": {"cg_iters": 200, "early_stop": None,
               "tier": tier, "max_dt_m": dt, "max_drot_rad": dr,
               "max_dlm_m": dl, "outliers": int(cs.n_outliers),
               "iterations": {"cpu": cs.n_iterations,
@@ -763,6 +865,316 @@ def phase_ba_profile(torch, system, cfg) -> None:
     emit({"phase": "ba_profile", "global_tier": tier, **rows})
 
 
+def loop_config():
+    """bench.py's flagship loop-benchmark config (bench.py:505-515): the
+    default SlamConfig at full capacity, near-every-frame keyframes, a
+    temporal gap spanning most of a lap."""
+    from modular_slam_tpu_torch.config import (LoopConfig, MapConfig,
+                                               SlamConfig, TrackerConfig)
+
+    return SlamConfig(
+        map=MapConfig(max_keyframes=256, max_landmarks=16384,
+                      max_observations=131072),
+        tracker=TrackerConfig(new_keyframe_min_inliers=300),
+        loop=LoopConfig(min_gap_keyframes=32, min_score=0.05,
+                        min_inliers=25, global_ba_on_loop=True))
+
+
+def loop_frames(cfg):
+    """Two laps of a 1.2 m circle facing the plane, 48 frames a lap, with
+    3 cm depth noise (bench.py:516-517), rendered once: the noise comes
+    from the generator's own stream, so every phase gets these frames."""
+    from modular_slam_tpu_torch.eval.synthetic import PlaneSceneGenerator
+
+    gen = PlaneSceneGenerator(cfg.camera, seed=3,
+                              depth_noise=LOOP_DEPTH_NOISE_M)
+    poses = gen.loop_trajectory(LOOP_FRAMES_PER_LAP,
+                                radius=LOOP_RADIUS_M) * 2
+    return poses, list(gen.sequence(poses))
+
+
+def _run_loop_frames(torch, system, frames):
+    """_run_frames, noting the frame at which each loop closure landed
+    (its query keyframe is that frame's)."""
+    codes, wall, closed_at = [], [], []
+    for k, f in enumerate(frames):
+        before = len(system._loop.closures)
+        t0 = time.perf_counter()
+        codes.append(system.process(*f))
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        closed_at += [k] * (len(system._loop.closures) - before)
+    return codes, wall, closed_at
+
+
+def _closure_errors(system, poses, closed_at) -> list:
+    """Per accepted closure, the distance of the verified query position
+    from the ground truth of its frame (bench.py:374-400)."""
+    import numpy as np
+
+    return [float(np.linalg.norm(np.asarray(c[4]) - poses[k].t))
+            for c, k in zip(system._loop.closures, closed_at)]
+
+
+def _ates(system, poses) -> dict:
+    import numpy as np
+
+    from modular_slam_tpu_torch.eval.ate import ate_rmse
+    from modular_slam_tpu_torch.io.trajectory import trajectory_array
+
+    est = trajectory_array(system.trajectory)
+    kfs = system.keyframe_trajectory()
+    check(np.isfinite(est).all() and np.isfinite(kfs).all(),
+          "trajectory not finite")
+    gt = _gt_array(poses)
+    return {"ate_rmse_m": ate_rmse(est, gt)["rmse"],
+            "keyframe_ate_rmse_m": ate_rmse(kfs, gt)["rmse"]}
+
+
+def _record_loop(torch, lp, events, gba_stats, pgo_inputs):
+    """Instrument a LoopPipeline: wall ms of every on_new_keyframe call
+    between two device syncs (closure or not), every global BA's stats,
+    and the inputs of the last PGO."""
+    on_kf, exec_gba, pgo = lp.on_new_keyframe, lp._exec_global_ba, lp._pgo
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = on_kf(*a, **k)
+        torch.cuda.synchronize()
+        events.append((bool(out[2]), 1e3 * (time.perf_counter() - t0)))
+        return out
+
+    def gba(*a, **k):
+        out = exec_gba(*a, **k)
+        st = lp.last_gba_stats
+        gba_stats.append((float(st.initial_cost), float(st.final_cost),
+                          st.n_iterations))
+        return out
+
+    def record_pgo(arena, cur_kf):
+        pgo_inputs[:] = [arena.kf_q.clone(), arena.kf_t.clone(),
+                         arena.kf_valid.clone(),
+                         type(lp.edges)(*(x.clone() for x in lp.edges))]
+        return pgo(arena, cur_kf)
+
+    lp.on_new_keyframe, lp._exec_global_ba, lp._pgo = timed, gba, record_pgo
+
+
+def phase_full(torch, kernels, cfg, poses, frames):
+    """The full preset over the loop frames, then the slam preset on the
+    same frames (loop detection off), then a profiled pass.  -> (launches,
+    the last PGO's inputs)."""
+    from modular_slam_tpu_torch.engine import SlamResult
+    from modular_slam_tpu_torch.models import make_pipeline
+
+    _check_tf32(torch)
+    system = make_pipeline("full", cfg, device="cuda", seed=0)
+    lp = system._loop
+    events, gba_stats, pgo_inputs = [], [], []
+    _record_loop(torch, lp, events, gba_stats, pgo_inputs)
+    kernels.reset_launch_counts()
+    codes, wall, closed_at = _run_loop_frames(torch, system, frames)
+    launches = kernels.launch_counts()
+    system.flush_backend()           # the last closure's post-fuse polish
+    torch.cuda.synchronize()
+
+    n = len(frames)
+    bad = [k for k, c in enumerate(codes) if c != SlamResult.SUCCESS]
+    check(not bad, f"full: frames {bad} not SUCCESS")
+    n_cl = system.n_loop_closures
+    check(n_cl >= 1, "full: no loop closure")
+    errs = _closure_errors(system, poses, closed_at)
+    fp = sum(e >= CLOSURE_TRUE_M for e in errs)
+    check(fp == 0, f"full: {fp} false-positive closures ({errs} m)")
+    n_gba = lp.n_global_ba
+    check(n_cl <= n_gba <= 2 * n_cl,
+          f"full: {n_gba} global BAs for {n_cl} closures")
+    check(all(f <= i for i, f, _ in gba_stats),
+          f"full: a global BA raised its cost {gba_stats}")
+    tracked = n - 1                                  # all but the bootstrap
+    k2 = tracked + lp.n_verify_dispatches + lp.n_reloc_attempts
+    want = {"fast_score": n, "hamming_2nn": k2, "hamming_merge": k2}
+    check(launches == want, f"full: launches {launches}, expected {want} "
+                            f"(K2 and its merge: {tracked} tracked frames "
+                            f"+ {lp.n_verify_dispatches} verifications + "
+                            f"{lp.n_reloc_attempts} relocalizations)")
+    ates = _ates(system, poses)
+    closure_ms = [ms for closed, ms in events if closed]
+    other_ms = [ms for closed, ms in events if not closed]
+
+    off = make_pipeline("slam", cfg, device="cuda", seed=0)
+    off_codes, off_wall = _run_frames(torch, off, frames)
+    off_ates = _ates(off, poses)
+
+    # the profiled pass runs the first lap, which holds the closure
+    prof = make_pipeline("full", cfg, device="cuda", seed=0)
+    prof._loop.profile = True
+    _run_frames(torch, prof, frames[:LOOP_FRAMES_PER_LAP])
+    stage = {k: {"calls": len(v), "median_ms": statistics.median(v),
+                 "max_ms": max(v)}
+             for k, v in prof._loop.stage_ms.items() if v}
+    emit({"phase": "full", "frames": n, "all_success": True,
+          **_frame_times(wall), "keyframes": system.n_keyframes,
+          "landmarks": system.n_landmarks,
+          "compactions": system.n_compactions, **ates,
+          "loop_off": {"preset": "slam", "all_success": all(
+              c == SlamResult.SUCCESS for c in off_codes),
+              **_frame_times(off_wall), **off_ates,
+              "keyframes": off.n_keyframes},
+          "loop_closures": n_cl, "closures": [
+              {"frame": k, "cur": c[0], "cand": c[1], "inliers": c[2],
+               "score": c[3], "query_err_m": e}
+              for c, k, e in zip(lp.closures, closed_at, errs)],
+          "false_positives": fp, "verify_rejects": lp.n_verify_rejects,
+          "verify_dispatches": lp.n_verify_dispatches,
+          "reloc_attempts": lp.n_reloc_attempts,
+          "relocalizations": system.n_relocalizations,
+          "global_ba": n_gba, "global_ba_initial_final_iters": gba_stats,
+          "global_ba_tiers": sorted(lp._gba_tiers),
+          "fused_landmarks": lp.n_fused_landmarks, "launches": launches,
+          "closure_ms": closure_ms,
+          "keyframe_loop_ms_median": statistics.median(other_ms),
+          "stage_ms_profiled": stage,
+          "stage_ms_profiled_closures": prof.n_loop_closures})
+    return launches, pgo_inputs
+
+
+def phase_lifecycle(torch, cfg, poses, frames) -> None:
+    import dataclasses
+
+    from modular_slam_tpu_torch.engine import SlamResult
+    from modular_slam_tpu_torch.models import make_pipeline
+
+    small = dataclasses.replace(cfg, map=dataclasses.replace(
+        cfg.map, max_keyframes=LIFECYCLE_MAX_KEYFRAMES))
+    system = make_pipeline("full", small, device="cuda", seed=0)
+    compacted_at = []
+    process = system.process
+
+    def counted(*f):
+        before = system.n_compactions
+        out = process(*f)
+        if system.n_compactions > before:
+            compacted_at.append(len(system.results) - 1)
+        return out
+
+    system.process = counted
+    frames = frames[:LOOP_FRAMES_PER_LAP]
+    codes, wall, closed_at = _run_loop_frames(torch, system, frames)
+    bad = [k for k, c in enumerate(codes) if c != SlamResult.SUCCESS]
+    check(not bad, f"lifecycle: frames {bad} not SUCCESS")
+    check(system.n_compactions >= 1, "lifecycle: no compaction")
+    n_kf = system.n_keyframes
+    check(n_kf < LIFECYCLE_MAX_KEYFRAMES
+          and bool(system.arena.kf_valid[:n_kf].all()),
+          f"lifecycle: {n_kf} keyframes after compaction")
+    errs = _closure_errors(system, poses, closed_at)
+    emit({"phase": "lifecycle", "max_keyframes": LIFECYCLE_MAX_KEYFRAMES,
+          "frames": len(frames), "all_success": True,
+          "compactions": system.n_compactions,
+          "compacted_at_frames": compacted_at,
+          "keyframes_created": sum(bool(r.new_keyframe)
+                                   for r in system.results),
+          "keyframes_live": n_kf, **_frame_times(wall),
+          **_ates(system, poses), "loop_closures": system.n_loop_closures,
+          "false_positives": sum(e >= CLOSURE_TRUE_M for e in errs),
+          "stats": system.stats()})
+
+
+def phase_relocalize(torch) -> None:
+    """tests/test_engine_full.py:95 at the default 640x480 config (the
+    tracker inserting a keyframe every frame, as there)."""
+    import numpy as np
+
+    from modular_slam_tpu_torch.config import SlamConfig, TrackerConfig
+    from modular_slam_tpu_torch.engine import SlamResult, SlamSystem
+    from modular_slam_tpu_torch.eval.synthetic import PlaneSceneGenerator
+
+    cfg = SlamConfig(tracker=TrackerConfig(new_keyframe_min_inliers=400))
+    gen = PlaneSceneGenerator(cfg.camera, texture_ppm=250, seed=35)
+    poses = gen.trajectory(RELOC_STEPS, step_t=(RELOC_STEP_M, 0.0, 0.0))
+    frames = list(gen.sequence(poses))
+    system = SlamSystem(cfg, device="cuda", enable_backend=False,
+                        enable_relocalization=True)
+    codes = [system.process(*f) for f in frames]
+    check(all(c == SlamResult.SUCCESS for c in codes),
+          "relocalize: the outbound frames did not all track")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    code = system.process(*frames[0])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    err = float(np.linalg.norm(system.state.pose.t.cpu().numpy()
+                               - poses[0].t))
+    check(system.n_relocalizations >= 1, "relocalize: did not fire")
+    check(err < RELOC_TOL_M, f"relocalize: recovered {err} m off")
+    emit({"phase": "relocalize", "steps": RELOC_STEPS,
+          "step_m": RELOC_STEP_M, "keyframes": system.n_keyframes,
+          "kidnap_frame_code": code.name,
+          "relocalizations": system.n_relocalizations,
+          "attempts": system._loop.n_reloc_attempts,
+          "recovered_err_m": err, "tol_m": RELOC_TOL_M,
+          "kidnap_frame_ms": ms, "ref_kf": int(system.state.ref_kf)})
+
+
+def phase_pgo_cpu_vs_gpu(torch, cfg, pgo_inputs) -> None:
+    """The full run's last PGO (`solve_pose_graph`, float64, as the loop
+    pipeline runs it) on "cpu" and "cuda", within 1e-4; the same PGO in
+    float32 (the JAX package's precision) is reported beside it."""
+    from modular_slam_tpu_torch.backend.posegraph import (
+        optimize_pose_graph, refresh_odometry_edges)
+    from modular_slam_tpu_torch.loop.pipeline import solve_pose_graph
+
+    lcfg = cfg.loop
+    kf_q, kf_t, kf_valid, edges = pgo_inputs
+
+    def run(dev):
+        e = type(edges)(*(x.to(dev) for x in edges))
+        return solve_pose_graph(kf_q.to(dev), kf_t.to(dev),
+                                kf_valid.to(dev), e, lcfg)
+
+    def run_f32(dev):
+        e = type(edges)(*(x.to(dev) for x in edges))
+        q, t = kf_q.to(dev), kf_t.to(dev)
+        return optimize_pose_graph(q, t, kf_valid.to(dev),
+                                   refresh_odometry_edges(e, q, t),
+                                   iters=lcfg.pgo_iterations,
+                                   cg_iters=lcfg.pgo_cg_iters)
+
+    t0 = time.perf_counter()
+    cq, ct, cc = run("cpu")
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gq, gt, gc = run("cuda")
+    torch.cuda.synchronize()
+    gpu_ms = 1e3 * (time.perf_counter() - t0)
+    rows = kf_valid.cpu()
+    dt, dr = _pose_diffs(torch, gq.cpu(), gt.cpu(), cq, ct, rows)
+    rel = abs(float(gc) - float(cc)) / max(abs(float(cc)), 1e-12)
+    f32 = [[x.cpu() for x in run_f32(d)] for d in ("cuda", "cpu")]
+    f32_dt, f32_dr = _pose_diffs(torch, f32[0][0], f32[0][1], f32[1][0],
+                                 f32[1][1], rows)
+    f64_f32_dt, _ = _pose_diffs(torch, cq, ct, f32[1][0], f32[1][1], rows)
+    emit_row = {
+        "phase": "pgo_cpu_vs_gpu", "keyframes": int(rows.sum()),
+        "edges": int((edges.weight > 0).sum()),
+        "loop_edges": int((edges.is_loop & (edges.weight > 0)).sum()),
+        "iters": lcfg.pgo_iterations, "cg_iters": lcfg.pgo_cg_iters,
+        "dtype": "float64", "max_dt_m": dt, "max_drot_rad": dr,
+        "cost_rel_diff": rel, "cost": {"cpu": float(cc), "cuda": float(gc)},
+        "tol": PGO_POSE_TOL, "cost_rtol": PGO_COST_RTOL,
+        "cpu_ms": cpu_ms, "cuda_ms": gpu_ms,
+        "float32": {"max_dt_m": f32_dt, "max_drot_rad": f32_dr,
+                    "cpu_vs_float64_cpu_dt_m": f64_f32_dt}}
+    check(dt <= PGO_POSE_TOL and dr <= PGO_POSE_TOL
+          and rel <= PGO_COST_RTOL,
+          f"pgo_cpu_vs_gpu: {dt} m, {dr} rad, cost {rel} relative")
+    _, emit_row["cuda_traced"] = _traced(torch, lambda: run("cuda"))
+    emit(emit_row)
+
+
 def main() -> int:
     import torch
 
@@ -800,13 +1212,22 @@ def main() -> int:
                      phase="slam_async_fast_motion")
     phase_ba_cpu_vs_gpu(torch, slam, cfg)
     phase_ba_profile(torch, slam, cfg)
+    lcfg = loop_config()
+    loop_poses, loop_frames_ = loop_frames(lcfg)
+    full_launches, pgo_inputs = phase_full(torch, kernels, lcfg, loop_poses,
+                                           loop_frames_)
+    phase_lifecycle(torch, lcfg, loop_poses, loop_frames_)
+    phase_relocalize(torch)
+    phase_pgo_cpu_vs_gpu(torch, lcfg, pgo_inputs)
 
     timing = {"fast_score": k1, "hamming_2nn": k2, "hamming_merge": merge}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source_relpath,
-         "replaces": k.replaces, "launches": launches[k.name],
+         "replaces": k.replaces, "launches": full_launches[k.name],
+         "launches_by_path": {"odometry": launches[k.name],
+                              "full": full_launches[k.name]},
          **{key: timing[k.name][key] for key in keys}}
         for k in kernels.KERNELS.values()]})
 

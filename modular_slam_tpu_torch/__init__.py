@@ -9,10 +9,12 @@ package: `config.py` is a copy of the JAX package's dataclasses, held
 equal to them by a test.
 
 Ported so far: the per-frame odometry path (detect -> Hamming 2-NN ->
-RANSAC-PnP -> map arena) and the bundle-adjustment backend (`backend/`),
-i.e. the `odometry` and `slam` presets.  Both of the JAX package's Pallas
-kernels run here as hand-written CUDA for Hopper (`csrc/`); on CPU tensors
-their plain PyTorch versions run instead.
+RANSAC-PnP -> map arena), the bundle-adjustment backend (`backend/`), and
+loop closure, pose-graph optimization, relocalization and the map
+lifecycle (`loop/`, `backend/posegraph.py`, `map/lifecycle.py`), i.e. the
+`odometry`, `slam` and `full` presets frame by frame.  Both of the JAX
+package's Pallas kernels run here as hand-written CUDA for Hopper
+(`csrc/`); on CPU tensors their plain PyTorch versions run instead.
 
 Float32 matrix products and convolutions run in full float32: the JAX
 path asks for `Precision.HIGHEST` (ops/brief.py, ops/blur.py), TF32 would

@@ -201,7 +201,19 @@ hamming_2nn_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
     }
   }
 
-  Top2 top[2][2];   // [m tile][row g or g + 8]
+  // [m tile][row g or g + 8], set explicitly: with the member
+  // initializers alone the m tile 1 pairs started at 0 on the card, so a
+  // split with no valid column gave its queries 16..31 the key 0 (d = 128,
+  // an index past the split) instead of the invalid floor
+  Top2 top[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      top[mt][h].best = kEmpty;
+      top[mt][h].second = kInvalidFloor;
+    }
+  }
   for (int chunk = c_begin; chunk < c_end; ++chunk) {
     const int stage = (chunk - c_begin) & 1;
     if (chunk + 1 < c_end) {

@@ -6,9 +6,10 @@ A textured plane at z = plane_z is viewed by a moving pinhole camera and
 rendered by exact ray-plane intersection.  The quaternion helpers below
 repeat the JAX package's float32 arithmetic, so for the same seed and
 poses both generators render the same frames (a test holds them equal).
-Poses are `Pose` NamedTuples of float32 numpy arrays (q wxyz, t).  Depth
-is exact: the JAX generator's `depth_noise` serves its loop-closure tests
-and comes with that slice.
+Poses are `Pose` NamedTuples of float32 numpy arrays (q wxyz, t).
+`depth_noise` adds the JAX generator's per-pixel Gaussian depth noise, drawn
+from the same generator (`default_rng(seed + 1)`) in the same order, so
+odometry accumulates drift for loop closure to correct.
 """
 
 from __future__ import annotations
@@ -83,11 +84,14 @@ class PlaneSceneGenerator:
 
     def __init__(self, camera: CameraConfig | None = None,
                  plane_z: float = 2.0, texture_ppm: float = 400.0,
-                 texture_size: int = 4096, seed: int = 0):
+                 texture_size: int = 4096, seed: int = 0,
+                 depth_noise: float = 0.0):
         self.camera = camera or CameraConfig()
         self.plane_z = plane_z
         self.ppm = texture_ppm  # texture pixels per meter
         self.tex = _texture(texture_size, seed)
+        self.depth_noise = depth_noise  # meters, per pixel
+        self._noise_rng = np.random.default_rng(seed + 1)
 
     # -- trajectories ---------------------------------------------------------
     def trajectory(self, n_frames: int, step_t=(0.02, 0.0, 0.0),
@@ -158,5 +162,9 @@ class PlaneSceneGenerator:
         gray = np.where(inside, val, 0.0).astype(np.float32)
 
         depth = np.where(inside, lam, 0.0).astype(np.float32)
+        if self.depth_noise > 0.0:
+            noise = self._noise_rng.normal(
+                0.0, self.depth_noise, depth.shape).astype(np.float32)
+            depth = np.where(depth > 0, np.maximum(depth + noise, 0.05), 0.0)
         rgb = np.repeat(gray[..., None], 3, axis=-1).astype(np.uint8)
         return rgb, depth

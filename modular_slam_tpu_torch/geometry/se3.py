@@ -147,6 +147,22 @@ def quat_from_axis_angle(axis_angle: Tensor) -> Tensor:
     return quat_normalize(torch.cat([w, k * axis_angle], dim=-1))
 
 
+def so3_log(q: Tensor) -> Tensor:
+    """Quaternion -> so(3) vector (axis * angle).  The double-where keeps
+    the value and its forward-mode derivative finite at the identity,
+    where the pose-graph optimizer linearizes."""
+    q = quat_normalize(q)
+    w = torch.clamp(q[..., :1], -1.0, 1.0)
+    v = q[..., 1:]
+    vn2 = torch.sum(v * v, dim=-1, keepdim=True)
+    small = vn2 < 1e-12
+    vn = torch.sqrt(torch.where(small, torch.ones_like(vn2), vn2))
+    theta = 2.0 * torch.atan2(vn, w)
+    # small: theta / vn -> 2 / w
+    k = torch.where(small, 2.0 / torch.clamp(w, min=_EPS), theta / vn)
+    return k * v
+
+
 # ---------------------------------------------------------------------------
 # SE(3)
 # ---------------------------------------------------------------------------
@@ -184,6 +200,28 @@ def se3_exp(xi: Tensor) -> Pose:
     return Pose(q=q, t=t)
 
 
+def se3_log(pose: Pose) -> Tensor:
+    """Pose -> se(3) vector [..., 6] (rho, phi); the double-where keeps it
+    differentiable at the identity."""
+    phi = so3_log(pose.q)
+    th2 = torch.sum(phi * phi, dim=-1, keepdim=True)
+    small = th2 < 1e-10
+    one = torch.ones_like(th2)
+    theta = torch.sqrt(torch.where(small, one, th2))
+    K = _skew(phi)
+    # V^-1 = I - K/2 + c K^2
+    half = theta / 2.0
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + th2 / 720.0,
+        (1.0 - half * torch.cos(half)
+         / torch.where(small, one, torch.sin(half)))
+        / torch.where(small, one, th2))
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device).expand(K.shape)
+    Vinv = eye - 0.5 * K + cot_term[..., None] * (K @ K)
+    rho = torch.einsum("...ij,...j->...i", Vinv, pose.t)
+    return torch.cat([rho, phi], dim=-1)
+
+
 def pose_compose(a: Pose, b: Pose) -> Pose:
     """a then b applied to camera points: result maps p -> a(b(p))."""
     return Pose(
@@ -205,3 +243,18 @@ def pose_apply(p: Pose, pts: Tensor) -> Tensor:
 def pose_apply_inverse(p: Pose, pts: Tensor) -> Tensor:
     """world -> camera."""
     return quat_rotate(quat_conjugate(p.q), pts - p.t)
+
+
+def pose_retract(p: Pose, xi: Tensor) -> Pose:
+    """Right-multiplicative retraction used by optimizers: p * exp(xi)."""
+    return pose_compose(p, se3_exp(xi))
+
+
+def pose_to_matrix(p: Pose) -> Tensor:
+    """Pose -> homogeneous [..., 4, 4] camera-to-world matrix."""
+    R = quat_to_matrix(p.q)
+    top = torch.cat([R, p.t[..., :, None]], dim=-1)
+    bottom = torch.zeros((*top.shape[:-2], 1, 4), dtype=p.t.dtype,
+                         device=p.t.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)

@@ -1,0 +1,69 @@
+"""Relocalization after tracking loss (counterpart of
+modular_slam_tpu/loop/relocalizer.py): BoW query over the keyframe
+database, geometric verification of the best candidates, recovered pose.
+
+The JAX relocalizer verifies its candidates one by one in a `lax.scan`
+and keeps the first that verifies with a positive score.  Here the batched
+`geometric_verify` verifies all of them at once (one K2 launch) and the
+same first one is picked on the device, with no host read.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from modular_slam_tpu_torch.config import SlamConfig
+from modular_slam_tpu_torch.geometry.camera import camera_from_config
+from modular_slam_tpu_torch.geometry.se3 import Pose, identity_pose
+from modular_slam_tpu_torch.loop.detector import (LoopDatabase,
+                                                  geometric_verify,
+                                                  query_candidates)
+from modular_slam_tpu_torch.loop.vocab import bow_histogram
+from modular_slam_tpu_torch.map.arena import MapArena
+from modular_slam_tpu_torch.ops.pnp import Sampler
+from modular_slam_tpu_torch.types import Features
+
+Tensor = torch.Tensor
+
+
+def _pick(x: Tensor, i: Tensor) -> Tensor:
+    """x[i] for a 0-d index tensor, gathered on the device (indexing with
+    a 0-d tensor reads it back to the host)."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
+def make_relocalizer(cfg: SlamConfig, vocab: Tensor) -> Callable:
+    """Returns fn(arena, db, feats, sampler) -> (ok, pose, kf_slot,
+    n_inliers), all 0-d tensors (and a Pose) on the vocab's device: the
+    first of the top-k BoW candidates that verifies geometrically, or
+    (False, identity, -1, 0).
+
+    `vocab` [V, 256] ±1 int8 MUST be the codebook the database histograms
+    were built with."""
+    cam = camera_from_config(cfg.camera, vocab.device)
+
+    def relocalize(arena: MapArena, db: LoopDatabase, feats: Features,
+                   sampler: Sampler) -> Tuple[Tensor, Pose, Tensor, Tensor]:
+        hist = bow_histogram(feats.descriptors.unpacked,
+                             feats.keypoints.valid, vocab)
+        # no temporal mask for relocalization: any keyframe may rescue us
+        scores, slots = query_candidates(db, hist, -10_000, min_gap=0,
+                                         top_k=cfg.loop.top_k)
+        ok, n_inl, pose = geometric_verify(arena, slots, feats, cam, cfg,
+                                           sampler)
+        use = ok & (scores > 0.0)
+        first = torch.argmax(use.to(torch.int32))      # 0 when none is
+        found = torch.any(use)
+        none = identity_pose(device=vocab.device)
+        q = torch.where(found, _pick(pose.q, first), none.q)
+        t = torch.where(found, _pick(pose.t, first), none.t)
+        slot = torch.where(found, _pick(slots, first).to(torch.int32),
+                           torch.full((), -1, dtype=torch.int32,
+                                      device=vocab.device))
+        n = torch.where(found, _pick(n_inl, first),
+                        torch.zeros_like(n_inl[0]))
+        return found, Pose(q=q, t=t), slot, n
+
+    return relocalize

@@ -139,9 +139,16 @@ def _check_cuda(name: str, x: Tensor, dtype: torch.dtype) -> None:
                         f"{x.dtype}")
 
 
-def _batch(rows: Tensor) -> int:
-    """Batch size of [N, 256] (1) or [B, N, 256] descriptor rows."""
-    return rows.shape[0] if rows.dim() == 3 else 1
+def _batch(x: Tensor, rank: int) -> int:
+    """Batch size of an operand whose unbatched rank is `rank`: 1, or its
+    leading dimension when it has one more."""
+    return x.shape[0] if x.dim() == rank + 1 else 1
+
+
+def _unbatched(query_pm1: Tensor, train_pm1: Tensor,
+               train_valid: Tensor) -> bool:
+    return query_pm1.dim() == 2 and train_pm1.dim() == 2 \
+        and train_valid.dim() == 1
 
 
 def _launch_splits(query_pm1: Tensor, train_pm1: Tensor,
@@ -154,8 +161,10 @@ def _launch_splits(query_pm1: Tensor, train_pm1: Tensor,
         raise ValueError(f"hamming_2nn: {_NBITS}-element rows expected")
     if query_pm1.dim() not in (2, 3) or train_pm1.dim() not in (2, 3):
         raise ValueError("hamming_2nn: [N, 256] or [B, N, 256] expected")
-    if train_valid.shape != train_pm1.shape[:-1]:
-        raise ValueError("hamming_2nn: train_valid must match train rows")
+    if (train_valid.dim() not in (1, 2)
+            or train_valid.shape[-1] != train_pm1.shape[-2]):
+        raise ValueError("hamming_2nn: train_valid must be [L] or [B, L] "
+                         "over the train rows")
     devs = {query_pm1.device, train_pm1.device, train_valid.device}
     if len(devs) != 1:
         raise ValueError(f"hamming_2nn: operands on several devices {devs}")
@@ -163,10 +172,11 @@ def _launch_splits(query_pm1: Tensor, train_pm1: Tensor,
         if x.data_ptr() % 16:
             raise ValueError("hamming_2nn: descriptors must be 16-byte "
                              "aligned")
-    Bq, Bt = _batch(query_pm1), _batch(train_pm1)
-    if Bq != Bt and 1 not in (Bq, Bt):
-        raise ValueError(f"hamming_2nn: batch sizes {Bq} and {Bt}")
-    B = max(Bq, Bt)
+    Bq, Bt, Bv = (_batch(query_pm1, 2), _batch(train_pm1, 2),
+                  _batch(train_valid, 1))
+    if len({Bq, Bt, Bv} - {1}) > 1:
+        raise ValueError(f"hamming_2nn: batch sizes {Bq}, {Bt} and {Bv}")
+    B = max(Bq, Bt, Bv)
     Nq = query_pm1.shape[-2]
     L = train_pm1.shape[-2]
     if L < 1:
@@ -182,7 +192,7 @@ def _launch_splits(query_pm1: Tensor, train_pm1: Tensor,
             train_valid.data_ptr(), best.data_ptr(), idx.data_ptr(),
             second.data_ptr(), B, Nq, L, S, cps,
             Nq * _NBITS if Bq > 1 else 0, L * _NBITS if Bt > 1 else 0,
-            L if Bt > 1 else 0, torch.cuda.current_stream(dev).cuda_stream)
+            L if Bv > 1 else 0, torch.cuda.current_stream(dev).cuda_stream)
     return best, idx, second, B
 
 
@@ -195,10 +205,11 @@ def hamming_2nn_splits(query_pm1: Tensor, train_pm1: Tensor,
     query_pm1 [Nq, 256] or [B, Nq, 256] int8 ±1; train_pm1 [L, 256] or
     [B, L, 256] int8 ±1 (an unset row of zeros is allowed: the kernel
     keys dot products of at most 256 in magnitude); train_valid [L] or
-    [B, L] bool.  An unbatched
-    operand is shared by every batch element.  Any Nq and any L >= 1."""
+    [B, L] bool.  An unbatched operand is shared by every batch element:
+    B masks over one set of rows compare the same queries with the same
+    rows under B masks.  Any Nq and any L >= 1."""
     best, idx, second, _ = _launch_splits(query_pm1, train_pm1, train_valid)
-    if query_pm1.dim() == 2 and train_pm1.dim() == 2:
+    if _unbatched(query_pm1, train_pm1, train_valid):
         return best[0], idx[0], second[0]
     return best, idx, second
 
@@ -223,9 +234,9 @@ def match_descriptors_cuda(query_pm1: Tensor, query_valid: Tensor,
             best.data_ptr(), idx.data_ptr(), second.data_ptr(),
             query_valid.data_ptr(), lm_slot.data_ptr(), distance.data_ptr(),
             valid.data_ptr(), B, S, Nq,
-            Nq if _batch(query_pm1) > 1 else 0, float(cfg.max_hamming),
+            Nq if _batch(query_pm1, 2) > 1 else 0, float(cfg.max_hamming),
             float(cfg.lowe_ratio), torch.cuda.current_stream(dev).cuda_stream)
-    if query_pm1.dim() == 2 and train_pm1.dim() == 2:
+    if _unbatched(query_pm1, train_pm1, train_valid):
         lm_slot, distance, valid = lm_slot[0], distance[0], valid[0]
     return Matches(lm_slot=lm_slot, distance=distance, valid=valid)
 

@@ -41,21 +41,31 @@ class PnpResult(NamedTuple):
 
 class MultinomialSampler:
     """Default RANSAC sampler: 3·n_hyp draws with replacement, uniform over
-    the valid rows (the probabilities of pnp.py:211-212), on the CPU from
-    an explicit generator, so a seed gives the same triplets for a CPU and
-    a CUDA run of the same frames.  Duplicate indices within a triplet are
-    degenerate and score out, as in the JAX package."""
+    the valid rows (uniform over all rows when none is valid: the
+    probabilities of pnp.py:211-212).  The uniforms come from an explicit
+    CPU generator and are mapped to rows on the rows' device by an exact
+    integer inverse CDF (the j-th valid row for j = floor(u * n_valid)), so
+    a seed gives the same triplets for a CPU and a CUDA run of the same
+    frames, and nothing is read back from the card: the uniforms go to it
+    from pinned memory without waiting.  Duplicate indices within a
+    triplet are degenerate and score out, as in the JAX package."""
 
     def __init__(self, seed: int = 0):
         self.generator = torch.Generator(device="cpu")
         self.generator.manual_seed(seed)
 
     def __call__(self, valid: Tensor, n_hyp: int) -> Tensor:
-        probs = valid.cpu().to(torch.float32) + 1e-9  # normalizable if none
-        idx = torch.multinomial(probs / torch.sum(probs), 3 * n_hyp,
-                                replacement=True,
-                                generator=self.generator)
-        return idx.reshape(n_hyp, 3).to(valid.device)
+        u = torch.rand((n_hyp, 3), generator=self.generator,
+                       dtype=torch.float64)
+        if valid.is_cuda:
+            u = u.pin_memory().to(valid.device, non_blocking=True)
+        N = valid.shape[0]
+        cdf = torch.cumsum(valid.to(torch.int64), 0)
+        n = cdf[-1]
+        none = n == 0
+        cdf = torch.where(none, torch.arange(1, N + 1, device=cdf.device), cdf)
+        j = torch.floor(u * torch.where(none, N, n)).to(torch.int64)
+        return torch.searchsorted(cdf, j, right=True).clamp(max=N - 1)
 
 
 def _triad(p1: Tensor, p2: Tensor, p3: Tensor) -> Tensor:

@@ -1,7 +1,8 @@
 """Carry engine state between the JAX package and the port.
 
 The system has no learned weights: its state is the `MapArena`, the
-`TrackState` and the frame's `Features`.  The `*_from_numpy` functions
+`TrackState`, the frame's `Features` and, with loop closure, the
+`LoopDatabase` and the `PoseGraphEdges`.  The `*_from_numpy` functions
 take the JAX package's NamedTuples with numpy leaves (for example
 `jax.tree.map(np.asarray, arena)`) — or anything with the same field
 names — and build the port's tensors on `device`; the `*_to_numpy`
@@ -18,8 +19,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from modular_slam_tpu_torch.backend.posegraph import PoseGraphEdges
 from modular_slam_tpu_torch.frontend.tracker import TrackState
 from modular_slam_tpu_torch.geometry.se3 import Pose
+from modular_slam_tpu_torch.loop.detector import LoopDatabase
 from modular_slam_tpu_torch.map.arena import MapArena
 from modular_slam_tpu_torch.types import Descriptors, Features, Keypoints
 
@@ -86,3 +89,21 @@ def features_to_numpy(feats: Features) -> Dict[str, Dict[str, np.ndarray]]:
     return {"keypoints": kps,
             "descriptors": {"packed": packed,
                             "unpacked": _n(feats.descriptors.unpacked)}}
+
+
+def loop_database_from_numpy(db: Any, device="cpu") -> LoopDatabase:
+    return LoopDatabase(**{k: _t(v, device) for k, v in
+                           _fields(db, LoopDatabase._fields).items()})
+
+
+def loop_database_to_numpy(db: LoopDatabase) -> Dict[str, np.ndarray]:
+    return {k: _n(getattr(db, k)) for k in LoopDatabase._fields}
+
+
+def pose_graph_edges_from_numpy(edges: Any, device="cpu") -> PoseGraphEdges:
+    return PoseGraphEdges(**{k: _t(v, device) for k, v in
+                             _fields(edges, PoseGraphEdges._fields).items()})
+
+
+def pose_graph_edges_to_numpy(edges: PoseGraphEdges) -> Dict[str, np.ndarray]:
+    return {k: _n(getattr(edges, k)) for k in PoseGraphEdges._fields}

@@ -1,6 +1,7 @@
-"""The slice as a whole: the port's SlamSystem — the odometry preset and
-the slam preset (local BA per keyframe) — against the JAX engine on the
-CPU, frame by frame.
+"""The slice as a whole: the port's SlamSystem — the odometry preset, the
+slam preset (local BA per keyframe) and the full preset (loop closure,
+relocalization, map compaction) — against the JAX engine on the CPU,
+frame by frame.
 
 RANSAC draws are replayed: the port's sampler below repeats the JAX
 engine's key schedule — PRNGKey(seed), one split per frame
@@ -233,41 +234,270 @@ def test_async_backend_merges_everything_and_keeps_appended_slots():
 
 
 def test_unported_features_raise():
-    cfg = tiny_test_config()
-    for kw in ({"enable_loop_closure": True},
-               {"enable_relocalization": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SlamSystem(cfg, device="cpu", **kw)
+    """Every preset builds; what is left unported — deferred closure
+    decisions, which belong to the chunked path — raises naming its
+    ROADMAP.md item."""
     from modular_slam_tpu_torch.models import make_pipeline
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_pipeline("full", cfg, device="cpu")
-    for name in ("odometry", "slam"):
+    cfg = tiny_test_config()
+    for name in ("odometry", "slam", "full"):
         assert isinstance(make_pipeline(name, cfg, device="cpu"), SlamSystem)
+    full = make_pipeline("full", cfg, device="cpu")
+    assert full.enable_loop_closure and full.enable_relocalization
+    with pytest.raises(KeyError):
+        make_pipeline("nonesuch", cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        full._loop.on_new_keyframe(full.arena, full.state, 0, None,
+                                   full.sampler, defer_closure=True)
 
 
 def test_highwater_raises_until_lifecycle_is_ported():
-    """The JAX engine compacts the map when a pool crosses the highwater
-    mark; the port raises there instead of diverging from it."""
+    """The lifecycle is ported: a pool crossing the highwater mark is
+    culled, evicted and compacted, as in the JAX engine, instead of
+    raising.  24 landmarks hold fewer than one frame's keypoints, so every
+    keyframe compacts."""
     base = tiny_test_config()
     cfg = base.replace(map=MapConfig(max_keyframes=16, max_landmarks=24,
                                      max_observations=2048))
     gen = PlaneSceneGenerator(cfg.camera, seed=2, texture_ppm=100.0)
-    frame = next(gen.sequence(gen.trajectory(1)))
-    with pytest.raises(NotImplementedError, match="highwater"):
-        SlamSystem(cfg, device="cpu").process(*frame)
+    frames = list(gen.sequence(gen.trajectory(2, step_t=(0.005, 0.0, 0.0))))
+    system = SlamSystem(cfg, device="cpu")
+    assert [system.process(*f).name for f in frames] == ["SUCCESS"] * 2
+    assert system.n_compactions == 2
+    assert system.stats()["map_compactions"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the full preset: loop closure, relocalization and map maintenance
+# ---------------------------------------------------------------------------
+
+
+class JaxKeyQueue:
+    """RANSAC sampler replaying, in order, the keys the JAX engine drew
+    while it processed the same frame (filled by `_record_keys`): the
+    tracker's frame key, the `top_k` keys of a loop verification (one
+    `split(key, top_k)`) and those of a relocalization attempt (the
+    `lax.scan`'s splits).  The port draws in that order."""
+
+    def __init__(self):
+        self.keys = []
+
+    def __call__(self, valid, n_hyp):
+        v = jnp.asarray(valid.cpu().numpy())
+        probs = v.astype(jnp.float32) + 1e-9
+        probs = probs / jnp.sum(probs)
+        idx = jax.random.choice(self.keys.pop(0), v.shape[0], (n_hyp, 3),
+                                replace=True, p=probs)
+        return torch.from_numpy(np.array(idx)).long()
+
+
+class _EveryTier(dict):
+    """The JAX pipeline's global-BA tier cache with every tier installed:
+    a miss builds `make_global_ba_compact`, so no closure defers its
+    global BA on a cold tier (which would depend on timing)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+
+    def get(self, tier, default=None):
+        from modular_slam_tpu.backend.ba import make_global_ba_compact
+
+        if tier not in self:
+            self[tier] = make_global_ba_compact(self.cfg, tier)
+        return self[tier]
+
+
+def _record_keys(jsys, queue):
+    """Wrap the JAX engine's step, verification and relocalizer so that
+    every RANSAC key they use lands in `queue`."""
+    step, lp = jsys._step, jsys._loop
+    verify, reloc = lp._verify_slots, lp._reloc
+    top_k = jsys.cfg.loop.top_k
+
+    def step_rec(arena, state, gray, depth, t, key):
+        if int(arena.n_kf) > 0:            # the tracker draws (no bootstrap)
+            queue.keys.append(key)
+        return step(arena, state, gray, depth, t, key)
+
+    def verify_rec(arena, scores, slots, feats, key):
+        queue.keys.extend(jax.random.split(key, slots.shape[0]))
+        return verify(arena, scores, slots, feats, key)
+
+    def reloc_rec(arena, db, feats, key):
+        k = key
+        for _ in range(top_k):
+            k, sub = jax.random.split(k)
+            queue.keys.append(sub)
+        return reloc(arena, db, feats, key)
+
+    jsys._step, lp._verify_slots, lp._reloc = step_rec, verify_rec, reloc_rec
+
+
+def _full_pair(monkeypatch, cfg, **kw):
+    """A JAX SlamSystem and a port one on the CPU with the same switches;
+    the JAX side with every global-BA tier installed and no background
+    compiles, and its RANSAC keys replayed to the port."""
+    from modular_slam_tpu.loop.pipeline import LoopPipeline as JLoop
+
+    monkeypatch.setattr(JLoop, "_compile_tier_async",
+                        lambda self, tier, arena: None)
+    jsys = JaxSlamSystem(cfg, **kw)
+    if jsys._loop is not None:
+        jsys._loop._gba_tiers = _EveryTier(cfg)
+    queue = JaxKeyQueue()
+    _record_keys(jsys, queue)
+    tsys = SlamSystem(cfg, device="cpu", sampler=queue, **kw)
+    return jsys, tsys, queue
+
+
+def _step_pair(k, jsys, tsys, queue, frame):
+    _assert_same_frame(k, jsys, jsys.process(*frame), tsys,
+                       tsys.process(*frame))
+    assert not queue.keys, (k, len(queue.keys))
+    for f in ("n_loop_closures", "n_relocalizations", "n_compactions"):
+        assert getattr(tsys, f) == getattr(jsys, f), (k, f)
+
+
+def _full_cfg(**loop):
+    """tests/test_engine_full.py `_cfg()` (320x240), a keyframe every
+    frame."""
+    import dataclasses
+
+    from modular_slam_tpu.config import (BackendConfig, CameraConfig,
+                                         DetectorConfig, LoopConfig,
+                                         PnpConfig, SlamConfig,
+                                         TrackerConfig)
+
+    return SlamConfig(
+        camera=CameraConfig(fx=320.0, fy=320.0, cx=159.5, cy=119.5,
+                            width=320, height=240),
+        detector=DetectorConfig(n_levels=4, max_keypoints=384),
+        map=MapConfig(max_keyframes=32, max_landmarks=4096,
+                      max_observations=16384),
+        pnp=PnpConfig(n_hypotheses=64),
+        backend=BackendConfig(max_iterations=8),
+        tracker=TrackerConfig(new_keyframe_min_inliers=400),
+        loop=dataclasses.replace(LoopConfig(), **loop))
+
+
+def _out_and_back(cfg):
+    """tests/test_engine_full.py:67: six 0.25 m steps out and back."""
+    gen = PlaneSceneGenerator(cfg.camera, seed=34)
+    out = gen.trajectory(6, step_t=(0.25, 0.0, 0.0))
+    return list(gen.sequence(out + out[::-1][1:]))
+
+
+_CLOSURE_LOOP = dict(min_gap_keyframes=4, min_score=0.10, min_inliers=25,
+                     max_covis_overlap=1_000_000)
+
+
+def test_full_preset_closes_the_same_loops_as_jax(monkeypatch):
+    """The out-and-back closure (tests/test_engine_full.py:67) through
+    both full engines: equal codes, closure pairs, global-BA runs and
+    fused landmarks; frame and keyframe poses within 1e-4 after PGO,
+    global BA, fusion and the post-fuse polish."""
+    cfg = _full_cfg(**_CLOSURE_LOOP)
+    jsys, tsys, queue = _full_pair(monkeypatch, cfg, enable_backend=True,
+                                   enable_loop_closure=True,
+                                   enable_relocalization=True)
+    for k, f in enumerate(_out_and_back(cfg)):
+        _step_pair(k, jsys, tsys, queue, f)
+    assert tsys.n_loop_closures >= 1
+    pairs = [c[:2] for c in tsys._loop.closures]
+    assert pairs == [tuple(int(x) for x in c[:2])
+                     for c in jsys._loop.closures]
+    for tc, jc in zip(tsys._loop.closures, jsys._loop.closures):
+        assert tc[2] == jc[2]                               # inliers
+        np.testing.assert_allclose(tc[3], jc[3], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(tc[4], jc[4], rtol=0, atol=POSE_TOL)
+    _assert_same_keyframes(jsys, tsys)     # flushes the post-fuse polish
+    assert tsys._loop.n_global_ba == jsys._loop.n_global_ba >= 2
+    assert tsys._loop.n_gba_deferred == jsys._loop.n_gba_deferred == 0
+    ts, js = tsys.stats(), jsys.stats()
+    assert ts == js, (ts, js)
+
+
+def test_full_preset_relocalizes_like_jax(monkeypatch):
+    """The kidnap of tests/test_engine_full.py:95: twelve 0.5 m steps,
+    then the first view again; both engines relocalize on that frame to
+    the same pose."""
+    cfg = _full_cfg()
+    gen = PlaneSceneGenerator(cfg.camera, texture_ppm=250, seed=35)
+    poses = gen.trajectory(12, step_t=(0.5, 0.0, 0.0))
+    frames = list(gen.sequence(poses))
+    jsys, tsys, queue = _full_pair(monkeypatch, cfg, enable_backend=False,
+                                   enable_relocalization=True)
+    for k, f in enumerate(frames + frames[:1]):
+        _step_pair(k, jsys, tsys, queue, f)
+    assert tsys.n_relocalizations == jsys.n_relocalizations == 1
+    assert tsys._loop.n_reloc_attempts == 1
+    for f in ("q", "t"):
+        np.testing.assert_allclose(
+            getattr(tsys.state.pose, f).numpy(),
+            np.asarray(getattr(jsys.state.pose, f)), rtol=0, atol=POSE_TOL)
+    assert int(tsys.state.ref_kf) == int(jsys.state.ref_kf)
+    assert float(np.linalg.norm(tsys.state.pose.t.numpy() - poses[0].t)) \
+        < 0.05
+
+
+def _assert_same_arena(k, jarena, tarena):
+    """Slots, counters, incidence and descriptors equal; poses within
+    1e-4, landmark positions within 1e-3 m."""
+    t = port_state.arena_to_numpy(tarena)
+    for f in JMapArena._fields:
+        want = np.asarray(getattr(jarena, f))
+        if f in ("kf_q", "kf_t"):
+            np.testing.assert_allclose(t[f], want, rtol=0, atol=POSE_TOL,
+                                       err_msg=f"{k} {f}")
+        elif f == "lm_pos":
+            np.testing.assert_allclose(t[f], want, rtol=0, atol=1e-3,
+                                       err_msg=f"{k} {f}")
+        else:
+            np.testing.assert_array_equal(t[f], want, err_msg=f"{k} {f}")
+
+
+def test_full_preset_compacts_like_jax(monkeypatch):
+    """The out-and-back loop with an 8-keyframe pool: both engines cull,
+    evict and compact at the same frames, leave equal arenas after each
+    compaction, and close the same loops across the remapped slots."""
+    import dataclasses
+
+    cfg = _full_cfg(**_CLOSURE_LOOP)
+    cfg = dataclasses.replace(cfg, map=dataclasses.replace(
+        cfg.map, max_keyframes=8))
+    jsys, tsys, queue = _full_pair(monkeypatch, cfg, enable_backend=True,
+                                   enable_loop_closure=True,
+                                   enable_relocalization=True)
+    compacted = 0
+    for k, f in enumerate(_out_and_back(cfg)):
+        _step_pair(k, jsys, tsys, queue, f)
+        if tsys.n_compactions > compacted:
+            compacted = tsys.n_compactions
+            _assert_same_arena(k, jsys.arena, tsys.arena)
+            np.testing.assert_array_equal(
+                tsys._loop.db.valid.numpy(), np.asarray(jsys._loop.db.valid))
+            assert tsys._loop._prev_kf == jsys._loop._prev_kf
+    assert compacted >= 2 and tsys.n_loop_closures >= 1
+    assert [c[:2] for c in tsys._loop.closures] == [
+        tuple(int(x) for x in c[:2]) for c in jsys._loop.closures]
+    edges = port_state.pose_graph_edges_to_numpy(tsys._loop.edges)
+    for f in ("i", "j", "weight", "is_loop"):
+        np.testing.assert_array_equal(
+            edges[f], np.asarray(getattr(jsys._loop.edges, f)), err_msg=f)
 
 
 @pytest.mark.parametrize("entry", [
     "SlamSystem", "make_slam_step", "make_pipeline", "make_pipeline_slam",
     "make_local_ba", "make_global_ba", "make_global_ba_compact",
-    "BackendExecutor"])
+    "BackendExecutor", "make_pipeline_full", "LoopPipeline"])
 def test_entry_points_default_to_the_card(entry):
     """With no device the entry points take "cuda": on a machine with no
     CUDA device they raise instead of running on the CPU."""
     from modular_slam_tpu_torch.backend import ba
     from modular_slam_tpu_torch.backend.executor import BackendExecutor
     from modular_slam_tpu_torch.engine import make_slam_step
+    from modular_slam_tpu_torch.loop.pipeline import LoopPipeline
     from modular_slam_tpu_torch.models import make_pipeline
 
     cfg = tiny_test_config()
@@ -279,7 +509,9 @@ def test_entry_points_default_to_the_card(entry):
              "make_global_ba": lambda: ba.make_global_ba(cfg),
              "make_global_ba_compact": lambda: ba.make_global_ba_compact(
                  cfg, (16, 1024, 4096)),
-             "BackendExecutor": lambda: BackendExecutor(cfg)}[entry]
+             "BackendExecutor": lambda: BackendExecutor(cfg),
+             "make_pipeline_full": lambda: make_pipeline("full", cfg),
+             "LoopPipeline": lambda: LoopPipeline(cfg)}[entry]
     if torch.cuda.is_available():
         made = build()
         if isinstance(made, SlamSystem):

@@ -206,3 +206,31 @@ def test_split_keys_decode_to_plain_triples(nq, nl, n_splits):
     ref = tm.hamming_2nn_splits_plain(qt, tt, tvt, cps)
     for got, want in zip((best, idx, second), ref):
         assert torch.equal(got.transpose(0, 1), want)
+
+
+def test_match_per_candidate_masks_over_shared_rows():
+    """Loop verification's shape (loop/detector.py): one query set and one
+    set of landmark rows under a [B, L] mask, as `jax.vmap` over the mask
+    alone; on the card this is one K2 launch with a batch stride of 0 for
+    the rows."""
+    q, qv, t, _ = _problem(8, nq=64, nl=640)
+    rng = np.random.default_rng(9)
+    masks = rng.random((3, 640)) > np.array([[0.1], [0.5], [0.9]])
+    got = _port(q, qv, t, masks)
+    assert tuple(got.valid.shape) == (3, 64)
+    ref = jax.vmap(lambda m: jmp.match_descriptors_pallas(
+        jnp.asarray(q), jnp.asarray(qv), jnp.asarray(t), m, CFG))(
+        jnp.asarray(masks))
+    for i in range(3):
+        _assert_same(JMatches(*(x[i] for x in ref)),
+                     Matches(*(x[i] for x in got)))
+    assert got.valid[0].sum() > got.valid[2].sum()
+    cps, S = tm.hamming_split_plan(640, 3)
+    splits = tm.hamming_2nn_splits_plain(*(torch.from_numpy(x)
+                                           for x in (q, t, masks)), cps)
+    assert tuple(splits[0].shape) == (3, S, 64)
+    for i in range(3):
+        one = tm.hamming_2nn_splits_plain(*(torch.from_numpy(x) for x in
+                                            (q, t, masks[i])), cps)
+        for a, b in zip(splits, one):
+            assert torch.equal(a[i], b)

@@ -1,6 +1,8 @@
 """The port runs with jax blocked: in a subprocess where importing jax
-fails, import modular_slam_tpu_torch and run three frames of the odometry
-preset and three of the slam preset (local BA) on the CPU."""
+fails, import modular_slam_tpu_torch and run three frames each of the
+odometry preset, the slam preset (local BA) and the full preset (loop
+closure, relocalization, and map compaction in a 2-keyframe pool) on the
+CPU; `chip_smoke.py` imports too, and without a card exits non-zero."""
 
 import os
 import subprocess
@@ -12,7 +14,7 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SCRIPT = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None          # any `import jax` now fails
-    from modular_slam_tpu_torch.config import tiny_test_config
+    from modular_slam_tpu_torch.config import MapConfig, tiny_test_config
     from modular_slam_tpu_torch.engine import SlamResult, SlamSystem
     from modular_slam_tpu_torch.eval.synthetic import PlaneSceneGenerator
     from modular_slam_tpu_torch.models import make_pipeline
@@ -27,7 +29,19 @@ SCRIPT = textwrap.dedent("""
     codes = [slam.process(*f) for f in gen.sequence(poses)]
     assert codes == [SlamResult.SUCCESS] * 3, codes
     assert slam._backend.n_submitted >= 1
-    assert "modular_slam_tpu_torch.backend.ba" in sys.modules
+    full = make_pipeline("full", cfg.replace(map=MapConfig(
+        max_keyframes=2, max_landmarks=512, max_observations=2048)),
+        device="cpu", seed=0)
+    codes = [full.process(*f) for f in gen.sequence(poses)]
+    assert codes == [SlamResult.SUCCESS] * 3, codes
+    assert full.n_compactions >= 1 and full._loop.db.valid.any()
+    for m in ("backend.ba", "loop.pipeline", "backend.posegraph",
+              "map.lifecycle"):
+        assert "modular_slam_tpu_torch." + m in sys.modules, m
+    import torch
+    import chip_smoke
+    if not torch.cuda.is_available():
+        assert chip_smoke.main() == 2      # no card: no result, non-zero
     leaked = sorted(m for m in sys.modules
                     if m == "modular_slam_tpu"
                     or m.startswith("modular_slam_tpu."))
