@@ -24,6 +24,12 @@ Phases, each printing one JSON line:
               frame tracked, ATE < 0.01 m, and the launch counts prove the
               path ran the kernels (K1 once per frame: 48; K2 and its merge
               once per tracked frame: 47 each)
+  chunk_odometry  the same 48 frames through `run(chunk=16)`: flags, counts
+              and slots equal to the odometry phase's `process` run, poses
+              within 1e-6, launches 48 / 47 / 47, at most one host sync in
+              a traced chunk beyond its results fetch; ms/frame beside
+              `process`'s, and `process`'s syncs on a tracked and on a
+              keyframe frame
   cpu_vs_gpu  the same 8 frames through the odometry preset on "cpu" (plain
               versions) and on "cuda" (kernels) with equally seeded samplers
   profile     per-stage host and device time, device busy time, idle
@@ -40,6 +46,11 @@ Phases, each printing one JSON line:
               merge at the next keyframe): every frame tracked, ATE, every
               window merged; slam_async_fast_motion the same on the 3x
               motion frames
+  chunk_slam_deferred  the slam preset on the 3x-motion frames, chunks of
+              16, `defer_chunk_sync=True`: every frame tracked, ATE, a BA
+              call per keyframe; a 100 ms device sleep queued after the
+              second chunk's scan shows the first chunk's results fetch
+              returning while it runs
   ba_cpu_vs_gpu  the last keyframe's window of the slam_fast_motion run
               solved on "cpu" and on "cuda", and the compact global BA of
               its map on both: at the production budget held on its cost,
@@ -60,17 +71,25 @@ Phases, each printing one JSON line:
               same frames (loop detection off); then a second pass with
               `profile=True` over the first lap (which holds the closure)
               for the per-stage closure ms
+  chunk_full  the full preset over the same 96 frames, deferred chunks of
+              16: every frame tracked, >= 1 closure, no false positive,
+              closures <= global BAs, keyframe ATE below loop detection
+              off; launches; the numbers beside the full phase's
   lifecycle   the first lap of those frames through the full preset with
               a 32-keyframe pool: >= 1 compaction, every frame tracked
   relocalize  the kidnap of tests/test_engine_full.py:95 at 640x480: 14
               steps of 0.5 m (12 leave the first view in reach of the
               tracker at this width), then the first frame again: >= 1
               relocalization, the position recovered within 0.05 m
+  chunk_relocalize  that kidnap and the next view on the chunked path,
+              chunks of 8: the kidnap frame, in the second chunk, rescued
+              by the in-scan relocalizer, the next frame within 0.05 m
   pgo_cpu_vs_gpu  the full run's last pose-graph optimization (float64,
               as the loop pipeline solves it) on "cpu" and on "cuda",
               within 1e-4, the same in float32 beside it, and one traced
               call on the card
-  kernels     every kernel: launches on the full path (and by path),
+  kernels     every kernel: launches on the chunked full path (and by
+              path: odometry, full, chunk_odometry, chunk),
               error, kernel and plain-version device times, the bound
               (bytes or operations at the H100's published peaks), the
               share of it reached, and the library call's time where one
@@ -121,6 +140,8 @@ RELOC_TOL_M = 0.05
 PGO_POSE_TOL = 1e-4         # pgo_cpu_vs_gpu (m and rad)
 PGO_COST_RTOL = 1e-4
 TIMED_RUNS = 25
+CHUNK = 16                  # chunk_* phases: frames per chunk
+RELOC_CHUNK = 8             # chunk_relocalize: the kidnap in chunk 2
 LEVEL_SHAPES = [(480, 640), (400, 533), (333, 444), (278, 370),
                 (231, 309), (193, 257), (161, 214), (134, 179)]
 # Published peaks of one H100 SXM (dense): HBM, int8 tensor cores, f32
@@ -453,7 +474,7 @@ def phase_odometry(torch, kernels, frames, poses, cfg) -> dict:
           "ate_rmse_m": ate, "keyframes": system.n_keyframes,
           "landmarks": system.n_landmarks, "launches": launches,
           "frames_per_s": 1e3 / times["ms_per_frame"], **times})
-    return launches, times["ms_per_frame"]
+    return launches, times["ms_per_frame"], system
 
 
 def _rot_angle(q1, q2) -> float:
@@ -682,9 +703,12 @@ def phase_slam_async(torch, frames, poses, cfg,
             system._backend.close()
 
 
-def _arena_on(arena, device):
-    """A copy of the arena on `device` (BA updates an arena in place)."""
-    return type(arena)(*(x.to(device, copy=True) for x in arena))
+def _arena_on(arena, device, dtype=None):
+    """A copy of the arena on `device` (BA updates an arena in place), its
+    float tensors cast to `dtype` when one is given."""
+    return type(arena)(*(
+        x.to(device, dtype=dtype if dtype and x.is_floating_point()
+             else x.dtype, copy=True) for x in arena))
 
 
 def _pose_diffs(torch, q_a, t_a, q_b, t_b, rows) -> tuple:
@@ -731,22 +755,29 @@ def phase_ba_cpu_vs_gpu(torch, system, cfg) -> None:
              "window_kf_lm_obs": [int(kf_ok.sum()), int(lm_ok.sum()),
                                   int((prob.obs.w > 0).sum())]}
 
-    # global BA.  At the production budget (24 CG steps, early stop) its
-    # poses are not determined to 1e-4: two runs on the card differ by
-    # ~5e-4 m at equal cost (a flat direction the CG steps leave
-    # unsolved; PERF.md, Findings), so that solve is held on its cost, and the
-    # poses on a converged solve (200 CG steps, 10 LM iterations)
+    # global BA.  In float32 its poses are not determined to 1e-4: along
+    # the keyframe chain's drift the cost changes by ~3e-5 over 3.3e-4 m,
+    # below what float32 residuals resolve, so two float32 solves stop up
+    # to ~4.4e-4 m apart however long they run, on the CPU alone from
+    # inputs 1e-7 apart as well as card against CPU (PERF.md, Findings).
+    # So the production solve (24 CG steps, early stop) is held on its
+    # cost, and the poses on a converged solve (200 CG steps, 10 LM
+    # iterations) of the same map in float64, where they are determined
+    # to ~1e-9 m; the float32 converged solves are reported beside it
     tier = global_ba_tier(system.arena)
     converged = dataclasses.replace(cfg, backend=dataclasses.replace(
         cfg.backend, gba_cg_iters=200, gba_early_stop_rtol=None))
-    prod, runs = {}, {}
+    prod, runs, runs32 = {}, {}, {}
     for d in ("cuda", "cpu"):
         a, st = make_global_ba_compact(cfg, tier, device=d)(
             _arena_on(system.arena, d))
         prod[d] = (_arena_on(a, "cpu"), st)
         a, st = make_global_ba_compact(converged, tier, device=d)(
-            _arena_on(system.arena, d))
+            _arena_on(system.arena, d, torch.float64))
         runs[d] = (_arena_on(a, "cpu"), st)
+        a, _ = make_global_ba_compact(converged, tier, device=d)(
+            _arena_on(system.arena, d))
+        runs32[d] = _arena_on(a, "cpu")
     (pga, pgs), (pca, pcs) = prod["cuda"], prod["cpu"]
     prod_dt, prod_dr = _pose_diffs(torch, pga.kf_q, pga.kf_t, pca.kf_q,
                                    pca.kf_t, pca.kf_valid)
@@ -764,6 +795,9 @@ def phase_ba_cpu_vs_gpu(torch, system, cfg) -> None:
                                  f"m, {dr} rad, landmarks {dl} m")
     check(torch.equal(ga.obs_valid, ca.obs_valid),
           "ba_cpu_vs_gpu: global BA obs_valid differs")
+    f32_dt, f32_dr = _pose_diffs(torch, runs32["cuda"].kf_q,
+                                 runs32["cuda"].kf_t, runs32["cpu"].kf_q,
+                                 runs32["cpu"].kf_t, ca.kf_valid)
     emit({"phase": "ba_cpu_vs_gpu", "tol_m": BA_POSE_TOL_M,
           "tol_rad": BA_POSE_TOL_RAD, "lm_tol_m": BA_LM_TOL_M,
           "local_window": local,
@@ -775,6 +809,8 @@ def phase_ba_cpu_vs_gpu(torch, system, cfg) -> None:
               "final_cost": {"cpu": float(pcs.final_cost),
                              "cuda": float(pgs.final_cost)}},
           "global_compact": {"cg_iters": 200, "early_stop": None,
+              "dtype": "float64", "float32_max_dt_m": f32_dt,
+              "float32_max_drot_rad": f32_dr,
               "tier": tier, "max_dt_m": dt, "max_drot_rad": dr,
               "max_dlm_m": dl, "outliers": int(cs.n_outliers),
               "iterations": {"cpu": cs.n_iterations,
@@ -1014,6 +1050,9 @@ def phase_full(torch, kernels, cfg, poses, frames):
     stage = {k: {"calls": len(v), "median_ms": statistics.median(v),
                  "max_ms": max(v)}
              for k, v in prof._loop.stage_ms.items() if v}
+    row = {"ms_per_frame": _frame_times(wall)["ms_per_frame"], **ates,
+           "loop_off_keyframe_ate_rmse_m": off_ates["keyframe_ate_rmse_m"],
+           "loop_closures": n_cl, "global_ba": n_gba}
     emit({"phase": "full", "frames": n, "all_success": True,
           **_frame_times(wall), "keyframes": system.n_keyframes,
           "landmarks": system.n_landmarks,
@@ -1037,7 +1076,7 @@ def phase_full(torch, kernels, cfg, poses, frames):
           "keyframe_loop_ms_median": statistics.median(other_ms),
           "stage_ms_profiled": stage,
           "stage_ms_profiled_closures": prof.n_loop_closures})
-    return launches, pgo_inputs
+    return launches, pgo_inputs, row
 
 
 def phase_lifecycle(torch, cfg, poses, frames) -> None:
@@ -1175,6 +1214,315 @@ def phase_pgo_cpu_vs_gpu(torch, cfg, pgo_inputs) -> None:
     emit(emit_row)
 
 
+def _chunks(frames, size):
+    return [frames[i:i + size] for i in range(0, len(frames), size)]
+
+
+def _timed_chunks(torch, system):
+    """Time every process_chunk call of `system` between two device
+    syncs; -> the list the wall seconds go into."""
+    wall = []
+    process_chunk = system.process_chunk
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = process_chunk(*a)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        return out
+
+    system.process_chunk = timed
+    return wall
+
+
+def _counted_fetches():
+    """Count the chunk results fetches (event waits on pinned copies: the
+    sync debug mode does not flag them)."""
+    from modular_slam_tpu_torch import engine
+
+    count = [0]
+    wait = engine._HostFetch.wait
+
+    def counted(self):
+        count[0] += 1
+        return wait(self)
+
+    engine._HostFetch.wait = counted
+    return count, lambda: setattr(engine._HostFetch, "wait", wait)
+
+
+def _same_as_process(torch, chunked, per_frame, label: str,
+                     tol: float) -> dict:
+    """Flags, counts and slots equal frame by frame; poses within tol."""
+    dt = dq = 0.0
+    for k, (a, b) in enumerate(zip(chunked.results, per_frame.results)):
+        for f in ("tracking_ok", "new_keyframe", "n_matches", "n_inliers",
+                  "kf_slot"):
+            check(int(getattr(a, f)) == int(getattr(b, f)),
+                  f"{label}: frame {k} {f} {int(getattr(a, f))} vs "
+                  f"{int(getattr(b, f))} of process")
+        dt = max(dt, float((a.pose.t - b.pose.t.cpu()).abs().max()))
+        dq = max(dq, float((a.pose.q - b.pose.q.cpu()).abs().max()))
+    check(len(chunked.results) == len(per_frame.results)
+          and dt <= tol and dq <= tol,
+          f"{label}: poses {dt} (t), {dq} (q) from process's, tol {tol}")
+    return {"equal_flags_counts_slots": True, "max_dt": dt, "max_dq": dq,
+            "pose_tol": tol}
+
+
+def _sync_counts(torch, cfg, frames) -> dict:
+    """Host syncs of one `process` call on a tracked frame and on a
+    keyframe frame, traced after a few untraced frames."""
+    from modular_slam_tpu_torch.engine import SlamSystem
+
+    system = SlamSystem(cfg, device="cuda", seed=0, enable_backend=False)
+    system.process(*frames[0])
+    rows = {}
+    for k, f in enumerate(frames[1:], 1):
+        _, row = _traced(torch, lambda f=f: system.process(*f))
+        kind = ("keyframe_frame" if bool(system.results[-1].new_keyframe)
+                else "tracked_frame")
+        rows.setdefault(kind, {"frame": k, "host_syncs": row["host_syncs"],
+                               "host_sync_sites": row["host_sync_sites"],
+                               "device_ops": row["device_ops"]})
+        if len(rows) == 2:
+            break
+    return rows
+
+
+def phase_chunk_odometry(torch, kernels, frames, cfg, odo,
+                         odometry_ms: float, sync_frames) -> dict:
+    """The odometry frames through `run(chunk=16)`: equal to the
+    odometry phase's `process` run (the same sampler seed and draw order),
+    the same launches, and at most one host sync per chunk beyond its
+    results fetch (traced on a second system's second chunk)."""
+    from modular_slam_tpu_torch.engine import SlamSystem
+
+    system = SlamSystem(cfg, device="cuda", seed=0, enable_backend=False)
+    wall = _timed_chunks(torch, system)
+    fetches, restore = _counted_fetches()
+    kernels.reset_launch_counts()
+    system.run(iter(frames), chunk=CHUNK)
+    launches = kernels.launch_counts()
+    restore()
+    n = len(frames)
+    check(all(bool(r.tracking_ok) for r in system.results),
+          "chunk_odometry: a frame not tracked")
+    same = _same_as_process(torch, system, odo, "chunk_odometry", 1e-6)
+    want = {"fast_score": n, "hamming_2nn": n - 1, "hamming_merge": n - 1}
+    check(launches == want, f"chunk_odometry: launches {launches}, "
+                            f"expected {want}")
+    n_fetches = fetches[0]
+    check(n_fetches == n // CHUNK, f"chunk_odometry: {n_fetches} fetches")
+
+    traced = SlamSystem(cfg, device="cuda", seed=0, enable_backend=False)
+    first, second = _chunks(frames, CHUNK)[:2]
+    traced.process_chunk(*zip(*first))
+    fetches, restore = _counted_fetches()
+    _, row = _traced(torch, lambda: traced.process_chunk(*zip(*second)))
+    restore()
+    check(row["host_syncs"] <= 1, f"chunk_odometry: {row['host_syncs']} "
+                                  f"host syncs in one chunk "
+                                  f"({row['host_sync_sites']})")
+    warm = wall[1:]
+    ms = 1e3 * sum(warm) / (CHUNK * len(warm))
+    emit({"phase": "chunk_odometry", "frames": n, "chunk": CHUNK,
+          "all_success": True, **same, "launches": launches,
+          "ms_per_frame": ms, "ms_per_chunk": [1e3 * w for w in wall],
+          "first_chunk_ms_per_frame": 1e3 * wall[0] / CHUNK,
+          "process_ms_per_frame": odometry_ms,
+          "results_fetches_per_chunk": n_fetches / (n // CHUNK),
+          "traced_chunk": {"host_syncs_beyond_fetch": row["host_syncs"],
+                           "host_sync_sites": row["host_sync_sites"],
+                           "results_fetches": fetches[0],
+                           "device_ops_per_frame": row["device_ops"] / CHUNK,
+                           "device_busy_ms_per_frame":
+                               row["device_busy_ms"] / CHUNK,
+                           "wall_ms_per_frame": row["wall_ms"] / CHUNK},
+          "process_host_syncs": _sync_counts(torch, cfg, sync_frames)})
+    return launches
+
+
+def phase_chunk_slam_deferred(torch, frames, poses, cfg) -> None:
+    """The slam preset over the fast-motion frames, chunks of 16, with
+    `defer_chunk_sync=True`.  The second chunk's scan ends with a 100 ms
+    device sleep: the first chunk's results fetch, made after that scan
+    was queued, must return while the sleep still runs — it waits for its
+    own copy only."""
+    from modular_slam_tpu_torch.engine import SlamResult
+    from modular_slam_tpu_torch.models import make_pipeline
+
+    _check_tf32(torch)
+    system = make_pipeline("slam", cfg, device="cuda", seed=0,
+                           defer_chunk_sync=True)
+    wall = _timed_chunks(torch, system)
+    probe = {}
+    chunks = _chunks(frames, CHUNK)
+
+    def run_chunk(k, frames_):
+        if k != 1:
+            return system.process_chunk(*zip(*frames_))
+        from modular_slam_tpu_torch import engine
+
+        # the scan was built by the first chunk
+
+        scan = system._scan
+        wait = engine._HostFetch.wait
+
+        def sleepy_scan(*a, **kw):
+            out = scan(*a, **kw)
+            torch.cuda._sleep(int(0.1 * H100_BOOST_HZ))
+            probe["end"] = torch.cuda.Event()
+            probe["end"].record()
+            return out
+
+        def probed_wait(self):
+            t0 = time.perf_counter()
+            host = wait(self)
+            probe["wait_ms"] = 1e3 * (time.perf_counter() - t0)
+            probe["next_scan_still_running"] = not probe["end"].query()
+            return host
+
+        system._scan, engine._HostFetch.wait = sleepy_scan, probed_wait
+        try:
+            return system.process_chunk(*zip(*frames_))
+        finally:
+            system._scan, engine._HostFetch.wait = scan, wait
+
+    for k, c in enumerate(chunks):
+        run_chunk(k, c)
+    system.flush_backend()
+    check(len(system.results) == len(frames),
+          f"chunk_slam_deferred: {len(system.results)} results")
+    codes = [SlamResult.SUCCESS if bool(r.tracking_ok)
+             else SlamResult.NO_CONSTRAINTS for r in system.results]
+    out = _check_track(system, codes, poses, "chunk_slam_deferred")
+    ex = system._backend
+    check(ex.n_submitted == system.n_keyframes,
+          f"chunk_slam_deferred: {ex.n_submitted} BA calls for "
+          f"{system.n_keyframes} keyframes")
+    check(probe.get("next_scan_still_running") is True,
+          f"chunk_slam_deferred: the fetch waited for the next chunk "
+          f"({probe})")
+    emit({"phase": "chunk_slam_deferred", **out, "chunk": CHUNK,
+          "ba_calls": ex.n_submitted,
+          "ms_per_chunk_with_bookkeeping": [1e3 * w for w in wall],
+          "fetch_overlap": {"fetch_wait_ms": probe["wait_ms"],
+                            "next_scan_still_running": True,
+                            "injected_sleep_ms": 100}})
+
+
+def phase_chunk_full(torch, kernels, cfg, poses, frames, full_row) -> dict:
+    """The full preset over the loop frames in deferred chunks of 16,
+    timed as a whole: a device sync per chunk would undo the pipelining."""
+    import numpy as np
+
+    from modular_slam_tpu_torch.models import make_pipeline
+
+    _check_tf32(torch)
+    system = make_pipeline("full", cfg, device="cuda", seed=0,
+                           defer_chunk_sync=True)
+    lp = system._loop
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.run(iter(frames), chunk=CHUNK)     # ends with flush_backend
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    n = len(frames)
+    check(all(bool(r.tracking_ok) for r in system.results)
+          and len(system.results) == n, "chunk_full: a frame not tracked")
+    n_cl = system.n_loop_closures
+    check(n_cl >= 1, "chunk_full: no loop closure")
+    check(not lp.has_pending_closure, "chunk_full: a closure left pending")
+    frame_of = {int(r.kf_slot): k for k, r in enumerate(system.results)
+                if bool(r.new_keyframe)}
+    errs = [float(np.linalg.norm(np.asarray(c[4]) - poses[frame_of[c[0]]].t))
+            for c in lp.closures]
+    fp = sum(e >= CLOSURE_TRUE_M for e in errs)
+    check(fp == 0, f"chunk_full: {fp} false-positive closures ({errs} m)")
+    check(n_cl <= lp.n_global_ba,
+          f"chunk_full: {lp.n_global_ba} global BAs for {n_cl} closures")
+    ates = _ates(system, poses)
+    off = full_row["loop_off_keyframe_ate_rmse_m"]
+    check(ates["keyframe_ate_rmse_m"] < off,
+          f"chunk_full: keyframe ATE {ates['keyframe_ate_rmse_m']} m, "
+          f"loop detection off {off} m")
+    k2 = (n - 1) + lp.n_verify_dispatches + lp.n_reloc_attempts
+    want = {"fast_score": n, "hamming_2nn": k2, "hamming_merge": k2}
+    check(launches == want, f"chunk_full: launches {launches}, expected "
+                            f"{want}")
+    emit({"phase": "chunk_full", "frames": n, "chunk": CHUNK,
+          "deferred": True, "all_success": True,
+          # the whole run, its first chunk included, ended by one sync
+          "ms_per_frame_whole_run": 1e3 * wall / n, **ates,
+          "keyframes": system.n_keyframes, "loop_closures": n_cl,
+          "closures": [{"cur": c[0], "cand": c[1], "inliers": c[2],
+                        "score": c[3], "query_err_m": e}
+                       for c, e in zip(lp.closures, errs)],
+          "false_positives": fp, "global_ba": lp.n_global_ba,
+          "verify_dispatches": lp.n_verify_dispatches,
+          "reloc_attempts": lp.n_reloc_attempts,
+          "relocalizations": system.n_relocalizations,
+          "launches": launches, "full_phase": full_row})
+    return launches
+
+
+def phase_chunk_relocalize(torch) -> None:
+    """The relocalize phase's kidnap on the chunked path, chunks of 8:
+    the kidnap frame is the 7th of the second chunk, whose scan starts
+    with the first chunk's keyframes in the database, so the in-scan
+    relocalizer rescues it and the next frame tracks from there."""
+    import numpy as np
+
+    from modular_slam_tpu_torch.config import SlamConfig, TrackerConfig
+    from modular_slam_tpu_torch.engine import SlamSystem
+    from modular_slam_tpu_torch.eval.synthetic import PlaneSceneGenerator
+
+    cfg = SlamConfig(tracker=TrackerConfig(new_keyframe_min_inliers=400))
+    gen = PlaneSceneGenerator(cfg.camera, texture_ppm=250, seed=35)
+    poses = gen.trajectory(RELOC_STEPS, step_t=(RELOC_STEP_M, 0.0, 0.0))
+    frames = list(gen.sequence(poses))
+    frames = frames + frames[:2]
+    system = SlamSystem(cfg, device="cuda", enable_backend=False,
+                        enable_relocalization=True)
+    wall = _timed_chunks(torch, system)
+    system.run(iter(frames), chunk=RELOC_CHUNK)
+    kidnap = RELOC_STEPS
+    relocd = [bool(r.relocalized) for r in system.results]
+    check(not bool(system.results[kidnap].tracking_ok) and relocd[kidnap],
+          f"chunk_relocalize: the kidnap frame was not rescued in the "
+          f"scan ({relocd})")
+    after = system.results[kidnap + 1]
+    err = float(np.linalg.norm(after.pose.t.numpy() - poses[1].t))
+    check(bool(after.tracking_ok) and err < RELOC_TOL_M,
+          f"chunk_relocalize: the frame after the kidnap {err} m off")
+    # the cost of the scan's per-frame `tracking_ok` read: the first chunk
+    # (8 tracked frames, no attempt) on fresh systems with relocalization
+    # on and off, in turns
+    first = {True: [], False: []}
+    for on in (True, False, True, False):
+        fresh = SlamSystem(cfg, device="cuda", enable_backend=False,
+                           enable_relocalization=on)
+        w = _timed_chunks(torch, fresh)
+        fresh.process_chunk(*zip(*frames[:RELOC_CHUNK]))
+        check(all(bool(r.tracking_ok) for r in fresh.results),
+              "chunk_relocalize: a first-chunk frame not tracked")
+        first[on].append(1e3 * w[0] / RELOC_CHUNK)
+    emit({"phase": "chunk_relocalize", "frames": len(frames),
+          "chunk": RELOC_CHUNK, "kidnap_frame": kidnap,
+          "in_scan_relocalizations": sum(relocd),
+          "relocalizations": system.n_relocalizations,
+          "attempts": system._loop.n_reloc_attempts,
+          "recovered_err_m": err, "tol_m": RELOC_TOL_M,
+          "ms_per_chunk": [1e3 * w for w in wall],
+          "first_chunk_ms_per_frame": {
+              "reloc_on_tracking_ok_read": first[True],
+              "reloc_off": first[False]}})
+
+
 def main() -> int:
     import torch
 
@@ -1200,8 +1548,10 @@ def main() -> int:
     phase_build(kernels)
     k1 = phase_k1(torch, frames, cfg)
     k2, merge = phase_k2(torch, cfg)
-    launches, ms_per_frame = phase_odometry(torch, kernels, frames, poses,
-                                            cfg)
+    launches, ms_per_frame, odo = phase_odometry(torch, kernels, frames,
+                                                 poses, cfg)
+    chunk_odo_launches = phase_chunk_odometry(
+        torch, kernels, frames, cfg, odo, ms_per_frame, fast_frames[:16])
     phase_cpu_vs_gpu(torch, frames[:N_CMP_FRAMES], cfg)
     phase_profile(torch, frames, cfg, ms_per_frame)
     phase_slam(torch, kernels, frames, poses, cfg, ms_per_frame)
@@ -1210,14 +1560,18 @@ def main() -> int:
     phase_slam_async(torch, frames, poses, cfg)
     phase_slam_async(torch, fast_frames, fast_poses, cfg,
                      phase="slam_async_fast_motion")
+    phase_chunk_slam_deferred(torch, fast_frames, fast_poses, cfg)
     phase_ba_cpu_vs_gpu(torch, slam, cfg)
     phase_ba_profile(torch, slam, cfg)
     lcfg = loop_config()
     loop_poses, loop_frames_ = loop_frames(lcfg)
-    full_launches, pgo_inputs = phase_full(torch, kernels, lcfg, loop_poses,
-                                           loop_frames_)
+    full_launches, pgo_inputs, full_row = phase_full(
+        torch, kernels, lcfg, loop_poses, loop_frames_)
+    chunk_launches = phase_chunk_full(torch, kernels, lcfg, loop_poses,
+                                      loop_frames_, full_row)
     phase_lifecycle(torch, lcfg, loop_poses, loop_frames_)
     phase_relocalize(torch)
+    phase_chunk_relocalize(torch)
     phase_pgo_cpu_vs_gpu(torch, lcfg, pgo_inputs)
 
     timing = {"fast_score": k1, "hamming_2nn": k2, "hamming_merge": merge}
@@ -1225,9 +1579,11 @@ def main() -> int:
             "share_of_bound", "library_ms")
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source_relpath,
-         "replaces": k.replaces, "launches": full_launches[k.name],
+         "replaces": k.replaces, "launches": chunk_launches[k.name],
          "launches_by_path": {"odometry": launches[k.name],
-                              "full": full_launches[k.name]},
+                              "full": full_launches[k.name],
+                              "chunk_odometry": chunk_odo_launches[k.name],
+                              "chunk": chunk_launches[k.name]},
          **{key: timing[k.name][key] for key in keys}}
         for k in kernels.KERNELS.values()]})
 

@@ -22,7 +22,12 @@ Departures from a literal translation, all for the card:
   onto a real row, and no host sync is needed.
 - Segment sums are `index_add_`: on CUDA its float atomics add in a
   different order from run to run, so `ba_core` there is reproducible
-  only to float32 rounding; on the CPU it is deterministic.
+  only to float32 rounding; on the CPU it is deterministic.  Along a
+  weakly constrained direction (a drift of the keyframe chain) float32
+  residuals cannot see the cost's slope, so two float32 solves may stop
+  several 1e-4 m apart, on the card and the CPU alike; `ba_core` and
+  `make_global_ba_compact` follow their inputs' dtype, so a float64 arena
+  gives a solve whose poses are determined.
 - Dense solves use `torch.linalg.solve_ex` / `inv_ex`, which skip the
   host-side error check of `solve` / `inv`.
 
@@ -113,7 +118,7 @@ def _inv3x3(M: Tensor) -> Tensor:
 
 
 def _eye(n: int, like: Tensor) -> Tensor:
-    return torch.eye(n, dtype=F32, device=like.device)
+    return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
 def _damp(M: Tensor, lam: Tensor, eye: Tensor) -> Tensor:
@@ -168,6 +173,7 @@ def ba_core(
     `cfg.max_iterations` steps."""
     K = kf_q_wc.shape[0]
     L = lm_pos.shape[0]
+    dt = lm_pos.dtype    # float32 in the engine
     tcw0 = pose_inverse(Pose(q=kf_q_wc, t=kf_t_wc))
     # huber deltas live in residual units: meters (p2p) vs pixels
     delta = cfg.huber_delta if residual_type == "p2p" else cfg.huber_delta_px
@@ -181,8 +187,8 @@ def ba_core(
                                   depth_weight=cfg.depth_weight)
         return reprojection_residuals(cam, R, t_cw, lm, obs)
 
-    pf_obs = pose_free[obs.kf].to(F32)[:, None, None]
-    lf_obs = lm_free[obs.lm].to(F32)[:, None, None]
+    pf_obs = pose_free[obs.kf].to(dt)[:, None, None]
+    lf_obs = lm_free[obs.lm].to(dt)[:, None, None]
     eyeK, eyeL = _eye(6, lm_pos), _eye(3, lm_pos)
 
     def seg_kf(x):
@@ -232,13 +238,13 @@ def ba_core(
                                 x_flat.reshape(K, 6)).reshape(-1)
 
         dp_flat, cg_res = pcg(matvec, rhs.reshape(-1), precond, cfg.cg_iters)
-        dp = dp_flat.reshape(K, 6) * pose_free[:, None].to(F32)
+        dp = dp_flat.reshape(K, 6) * pose_free[:, None].to(dt)
 
         # back-substitute landmarks
         a2 = torch.einsum("oki,oi->ok", Jp, dp[obs.kf])
         z2 = seg_lm(torch.einsum("oki,ok->oi", wJl, a2))
         dl = (torch.einsum("lij,lj->li", Vinv, b_l - z2)
-              * lm_free[:, None].to(F32))
+              * lm_free[:, None].to(dt))
 
         tcw_new = pose_compose(se3_exp(dp), Pose(q=q_cw, t=t_cw))
         lm_new = lm + dl
@@ -252,15 +258,15 @@ def ba_core(
 
     cost0 = cost_of(tcw0.q, tcw0.t, lm_pos)
     state = (tcw0.q, tcw0.t, lm_pos,
-             torch.full((), cfg.init_lambda, dtype=F32, device=lm_pos.device),
+             torch.full((), cfg.init_lambda, dtype=dt, device=lm_pos.device),
              cost0)
-    cg_last = torch.zeros((), dtype=F32, device=lm_pos.device)
+    cg_last = torch.zeros((), dtype=dt, device=lm_pos.device)
     n_it = 0
     if early_stop_rtol is None:
         for n_it in range(1, cfg.max_iterations + 1):
             state, cg_last, _ = lm_step(*state)
     else:
-        rtol = torch.full((), early_stop_rtol, dtype=F32,
+        rtol = torch.full((), early_stop_rtol, dtype=dt,
                           device=lm_pos.device)
         stall = torch.zeros((), dtype=torch.int32, device=lm_pos.device)
         while n_it < cfg.max_iterations:
@@ -532,7 +538,7 @@ def _compact_obs(cam: Camera, arena: MapArena, obs_idx: Tensor,
     obs = ObsData(
         kf=torch.where(ok, o_kf, 0), lm=torch.where(ok, o_lm, 0),
         p_obs=backproject(cam, uv, arena.obs_depth[obs_g]), uv=uv,
-        w=ok.to(F32))
+        w=ok.to(arena.lm_pos.dtype))
     return obs, obs_kf_g, obs_lm_g
 
 

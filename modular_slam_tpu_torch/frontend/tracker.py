@@ -10,13 +10,18 @@ modular_slam_tpu/frontend/tracker.py).
   reference keyframe, or when one is overdue; otherwise the reference
   keyframe may move to the best of its 5-hop neighbours by visibility vote.
 
-Each `lax.cond` of the JAX version is a Python branch here, on one scalar
-read from the device.
+The JAX version's `lax.cond`s read nothing back from the device, and
+neither does this step: the keyframe branch's inserts run on every
+tracked frame, gated by `enable=need_kf` (map/arena.py), beside the
+better-reference vote, and `torch.where` picks between them; scalar
+indices are 1-d `index_select`s.  Only the bootstrap choice is a host
+decision: `track_frame(..., bootstrap=...)` takes it from the caller (the
+engine keeps it as a flag), and reads `arena.n_kf` when it is not given.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,6 +61,12 @@ def _count(mask: Tensor) -> Tensor:
     return torch.sum(mask.to(torch.int32), dtype=torch.int32)
 
 
+def _pick(x: Tensor, i: Tensor) -> Tensor:
+    """x[i] for a 0-d index tensor, gathered on the device (indexing with
+    a 0-d tensor reads it back to the host)."""
+    return x.index_select(0, i.reshape(1).to(torch.int64))[0]
+
+
 def _bootstrap(arena: MapArena, state: TrackState, feats: Features,
                cam: Camera, cfg: SlamConfig,
                time: Tensor) -> Tuple[MapArena, TrackState, TrackResult]:
@@ -74,13 +85,13 @@ def _bootstrap(arena: MapArena, state: TrackState, feats: Features,
                              feats.descriptors.unpacked, has_depth)
 
     n = _count(has_depth)
-    true = torch.tensor(True, device=dev)
+    true = torch.ones((), dtype=torch.bool, device=dev)
     result = TrackResult(pose=pose, n_matches=n, n_inliers=n,
                          tracking_ok=true, new_keyframe=true,
                          kf_slot=kf_slot)
     new_state = TrackState(pose=pose, ref_kf=kf_slot,
                            frame_idx=state.frame_idx + 1,
-                           lost=torch.tensor(False, device=dev),
+                           lost=torch.zeros((), dtype=torch.bool, device=dev),
                            since_kf=torch.zeros_like(state.since_kf))
     return arena, new_state, result
 
@@ -118,41 +129,45 @@ def _track(arena: MapArena, state: TrackState, feats: Features, cam: Camera,
     n_inliers = torch.where(ok, pnp.n_inliers, torch.zeros_like(pnp.n_inliers))
 
     # --- keyframe policy: inlier floor | weak vs reference | overdue -------
-    n_ref_obs = torch.sum(arena.inc[state.ref_kf.long()].to(torch.float32))
+    # (a reference slot of K, a keyframe the full pool dropped, reads row
+    # K - 1 as the JAX gather clamps it)
+    K, L = arena.max_keyframes, arena.max_landmarks
+    ref_row = torch.clamp(state.ref_kf, max=K - 1)
+    n_ref_obs = torch.sum(_pick(arena.inc, ref_row).to(torch.float32))
     weak_vs_ref = (n_inliers.to(torch.float32)
                    < tcfg.new_keyframe_inlier_ratio * n_ref_obs)
     overdue = (state.since_kf + 1) >= tcfg.max_kf_interval
     need_kf = ok & ((n_inliers < tcfg.new_keyframe_min_inliers)
                     | weak_vs_ref | overdue)
 
-    if bool(need_kf):
-        arena, kf_slot = add_keyframe(arena, pose, time)
-        # observations of inlier-matched landmarks from the new keyframe
-        arena = add_observations(arena, kf_slot, matches.lm_slot, kps.uv,
-                                 kps.depth, desc, pnp.inliers)
-        # new landmarks from unmatched keypoints with near depth
-        unmatched = (kps.valid & ~matches.valid & (kps.depth > 0.0)
-                     & (kps.depth <= tcfg.new_landmark_max_depth))
-        pts_w_new = pose_apply(pose, pts_cam)
-        arena, lm_slots = add_landmarks(arena, pts_w_new, desc, unmatched)
-        arena = add_observations(arena, kf_slot, lm_slots, kps.uv, kps.depth,
-                                 desc, unmatched)
-        kf_or_ref = kf_slot
-    else:
-        # better-reference search: visibility voting over 5 hops
-        L = arena.max_landmarks
-        hop5 = khop_keyframes(arena, state.ref_kf, tcfg.covis_depth_better_kf)
-        # scatter with a sentinel row L, dropped by the slice
-        slots = torch.where(pnp.inliers, matches.lm_slot.long(),
-                            torch.full_like(matches.lm_slot.long(), L))
-        inlier_lm = torch.zeros(L + 1, dtype=torch.float32,
-                                device=slots.device)
-        inlier_lm[slots] = 1.0
-        votes = (arena.inc.to(torch.float32) @ inlier_lm[:L]).to(torch.int32)
-        votes = torch.where(hop5 & arena.kf_valid, votes,
-                            torch.full_like(votes, -1))
-        best = torch.argmax(votes).to(torch.int32)
-        kf_or_ref = torch.where(votes[best.long()] > 0, best, state.ref_kf)
+    # --- better-reference search: visibility voting over 5 hops, on the
+    # arena before the keyframe branch's inserts (used when no keyframe)
+    hop5 = khop_keyframes(arena, state.ref_kf, tcfg.covis_depth_better_kf)
+    # scatter with a sentinel row L, dropped by the slice
+    slots = torch.where(pnp.inliers, matches.lm_slot.long(),
+                        torch.full_like(matches.lm_slot.long(), L))
+    inlier_lm = torch.zeros(L + 1, dtype=torch.float32, device=slots.device)
+    inlier_lm.index_fill_(0, slots, 1.0)
+    votes = (arena.inc.to(torch.float32) @ inlier_lm[:L]).to(torch.int32)
+    votes = torch.where(hop5 & arena.kf_valid, votes,
+                        torch.full_like(votes, -1))
+    best = torch.argmax(votes).to(torch.int32)
+    ref = torch.where(_pick(votes, best) > 0, best, state.ref_kf)
+
+    # --- the keyframe branch, masked by need_kf ----------------------------
+    arena, kf_slot = add_keyframe(arena, pose, time, enable=need_kf)
+    # observations of inlier-matched landmarks from the new keyframe
+    arena = add_observations(arena, kf_slot, matches.lm_slot, kps.uv,
+                             kps.depth, desc, pnp.inliers, enable=need_kf)
+    # new landmarks from unmatched keypoints with near depth
+    unmatched = (kps.valid & ~matches.valid & (kps.depth > 0.0)
+                 & (kps.depth <= tcfg.new_landmark_max_depth))
+    pts_w_new = pose_apply(pose, pts_cam)
+    arena, lm_slots = add_landmarks(arena, pts_w_new, desc, unmatched,
+                                    enable=need_kf)
+    arena = add_observations(arena, kf_slot, lm_slots, kps.uv, kps.depth,
+                             desc, unmatched, enable=need_kf)
+    kf_or_ref = torch.where(need_kf, kf_slot, ref)
     ref_kf = torch.where(ok, kf_or_ref, state.ref_kf)
 
     result = TrackResult(
@@ -169,10 +184,15 @@ def _track(arena: MapArena, state: TrackState, feats: Features, cam: Camera,
 
 def track_frame(arena: MapArena, state: TrackState, feats: Features,
                 cam: Camera, cfg: SlamConfig, time: Tensor, sampler: Sampler,
+                bootstrap: Optional[bool] = None,
                 ) -> Tuple[MapArena, TrackState, TrackResult]:
     """One frontend step: bootstrap on the first frame, track afterwards.
     `sampler` draws the RANSAC triplets (ops/pnp.py) and is called once
-    per tracked frame."""
-    if int(arena.n_kf) == 0:
+    per tracked frame.  `bootstrap` says whether the arena is empty (the
+    JAX step's `arena.n_kf == 0`); when None it is read from the device,
+    and otherwise the step reads nothing back."""
+    if bootstrap is None:
+        bootstrap = int(arena.n_kf) == 0
+    if bootstrap:
         return _bootstrap(arena, state, feats, cam, cfg, time)
     return _track(arena, state, feats, cam, cfg, time, sampler)

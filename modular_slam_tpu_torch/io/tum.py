@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from modular_slam_tpu_torch.types import LUMA_WEIGHTS, RgbdFrame
+from modular_slam_tpu_torch.utils.device import constant, upload
 
 
 def rgb_to_luma(rgb: torch.Tensor) -> torch.Tensor:
@@ -17,7 +18,9 @@ def rgb_to_luma(rgb: torch.Tensor) -> torch.Tensor:
     + b*w2: on the CPU this rounds exactly like the JAX package's
     tensordot, bit for bit (a float32 matmul does not)."""
     x = rgb.to(torch.float32)
-    w = torch.tensor(LUMA_WEIGHTS, dtype=torch.float32, device=rgb.device)
+    w = constant("luma_weights",
+                 lambda: torch.tensor(LUMA_WEIGHTS, dtype=torch.float32),
+                 rgb.device)
     g = x[..., 0] * w[0]
     g = torch.addcmul(g, x[..., 1], w[1])
     return torch.addcmul(g, x[..., 2], w[2])
@@ -25,12 +28,12 @@ def rgb_to_luma(rgb: torch.Tensor) -> torch.Tensor:
 
 def frame_to_device(rgb: np.ndarray, depth: np.ndarray, timestamp: float,
                     device="cpu") -> RgbdFrame:
-    """Host numpy frame -> RgbdFrame on `device`, with luma grayscale."""
-    rgb_d = torch.as_tensor(np.ascontiguousarray(rgb), device=device)
+    """Host numpy frame -> RgbdFrame on `device`, with luma grayscale;
+    the copies to the card wait for nothing queued there."""
+    rgb_d = upload(rgb, device)
     return RgbdFrame(
         rgb=rgb_d,
         gray=rgb_to_luma(rgb_d),
-        depth=torch.as_tensor(np.asarray(depth, dtype=np.float32),
-                              device=device),
-        timestamp=torch.tensor(timestamp, dtype=torch.float32, device=device),
+        depth=upload(np.asarray(depth, dtype=np.float32), device),
+        timestamp=upload(np.asarray(timestamp, dtype=np.float32), device),
     )

@@ -25,8 +25,16 @@ step: a tier's solver (`make_global_ba_compact`) is built on first use and
 cached, so a global BA is never deferred (`n_gba_deferred` stays 0) and
 `_gba_pending` is set only by the post-fuse polish.
 
-`defer_closure=True` belongs to the chunked path, which is not ported yet
-(ROADMAP.md, "Next slices").
+`defer_closure=True` (the engine's deferred chunk path) parks a
+keyframe's verification without reading it; `resolve_pending` decides the
+queue later, re-checking the cooldown then.
+
+A keyframe the full pool dropped (slot K, which happens only in a pool of
+fewer than 3 keyframes, one eviction cannot shrink) goes through the same
+steps as in JAX, whose gathers clamp it to slot K - 1 and whose scatters
+drop it: the reads here take slot K - 1, the BoW row and the pose-graph
+edges that name slot K are not written, and the counters (`_n_edges`,
+`_prev_kf`, `_kf_counter`) move as in JAX.
 """
 
 from __future__ import annotations
@@ -78,8 +86,19 @@ def _delta_apply(old: Pose, new: Pose, live: Pose) -> Pose:
 
 
 def _kf_pose(arena: MapArena, slot: int) -> Pose:
-    """A copy of keyframe `slot`'s pose (the arena is updated in place)."""
+    """A copy of keyframe `slot`'s pose (the arena is updated in place);
+    slot K reads K - 1, as the JAX gather clamps it."""
+    slot = min(slot, arena.max_keyframes - 1)
     return Pose(q=arena.kf_q[slot].clone(), t=arena.kf_t[slot].clone())
+
+
+def _add_edge(edges: PoseGraphEdges, idx: int, i: int, j: int, rel: Pose,
+              weight: float, K: int, is_loop: bool = False) -> None:
+    """`add_edge`, dropped when an endpoint is a keyframe the full pool
+    dropped (slot K; JAX writes it, and its next compaction deactivates
+    it)."""
+    if i < K and j < K:
+        add_edge(edges, idx, i, j, rel, weight, is_loop=is_loop)
 
 
 def solve_pose_graph(kf_q: Tensor, kf_t: Tensor, kf_valid: Tensor,
@@ -207,18 +226,18 @@ class LoopPipeline:
         defer_closure: bool = False, counters=None,
     ) -> Tuple[MapArena, TrackState, bool]:
         """Keyframe-rate loop work; -> (arena, state, closed).  `sampler`
-        draws the verification's RANSAC triplets (ops/pnp.py)."""
-        if defer_closure:
-            raise NotImplementedError(
-                "defer_closure belongs to the chunked path, which is not "
-                "ported to PyTorch yet (ROADMAP.md, 'Next slices', item 2)")
-        if kf_slot >= arena.max_keyframes:
-            # the full pool dropped this keyframe (only a pool of fewer
-            # than 3 keyframes, which eviction cannot shrink, fills up):
-            # nothing to index.  The JAX pipeline runs on clamped gathers.
-            return arena, state, False
+        draws the verification's RANSAC triplets (ops/pnp.py).
+
+        `defer_closure`: park the verification (query results, ok,
+        inliers, poses; nothing read back) for `resolve_pending`, and
+        leave the queue to the caller — the deferred chunk path resolves
+        it at the next chunk's entry.  `counters`: pre-fetched (n_kf,
+        n_lm, n_obs) for the global-BA tier."""
         self._t0 = time.perf_counter()
-        arena, state, closed = self.resolve_pending(arena, state, counters)
+        closed = False
+        if not defer_closure:
+            arena, state, closed = self.resolve_pending(arena, state,
+                                                        counters)
         if self._gba_pending:
             arena, state = self.maybe_run_pending_gba(arena, state, kf_slot,
                                                       counters)
@@ -231,8 +250,8 @@ class LoopPipeline:
         if self._prev_kf is not None and self._prev_kf != kf_slot:
             rel = relative_pose(_kf_pose(arena, self._prev_kf),
                                 _kf_pose(arena, kf_slot))
-            add_edge(self.edges, self._n_edges, self._prev_kf, kf_slot, rel,
-                     1.0)
+            _add_edge(self.edges, self._n_edges, self._prev_kf, kf_slot, rel,
+                      1.0, arena.max_keyframes)
             self._n_edges += 1
         self._prev_kf = kf_slot
 
@@ -244,6 +263,11 @@ class LoopPipeline:
             self._mark("query")
             ok_b, inl_b, poses_b = self._verify_slots(arena, scores, slots,
                                                       feats, sampler)
+            if defer_closure:
+                self._pending_verify.append(
+                    (self._kf_counter, kf_slot, scores, slots, ok_b, inl_b,
+                     poses_b))
+                return arena, state, closed
             arena, state, closed_now = self._finish_closure(
                 arena, state, kf_slot, scores, slots, ok_b, inl_b, poses_b,
                 counters)
@@ -313,11 +337,12 @@ class LoopPipeline:
             self._mark("global_ba")
         # merge the revisit's re-created landmarks into the matched
         # keyframe's originals, now that PGO and global BA put them in one
-        # frame; the count stays on the device
+        # frame; the count stays on the device (a dropped keyframe reads
+        # slot K - 1, as the JAX gathers clamp it)
         m = self.cfg.map
         arena, n_fused = fuse_duplicate_landmarks(
-            arena, kf_slot, cand, max_dist=m.fusion_max_dist_m,
-            max_hamming=m.fusion_max_hamming)
+            arena, min(kf_slot, arena.max_keyframes - 1), cand,
+            max_dist=m.fusion_max_dist_m, max_hamming=m.fusion_max_hamming)
         self._fused_acc += n_fused
         self._mark("fuse")
         # fusion rewired the revisit's observations onto the originals:
@@ -343,7 +368,8 @@ class LoopPipeline:
         arena.kf_q.copy_(q)
         arena.kf_t.copy_(t)
         arena.lm_pos.copy_(lm_new)
-        return arena, Pose(q=q[cur_kf], t=t[cur_kf]), cost
+        cur = min(cur_kf, K - 1)
+        return arena, Pose(q=q[cur], t=t[cur]), cost
 
     def _close(self, arena: MapArena, cand: int, cur_kf: int, meas_q: Tensor,
                meas_t: Tensor, edge_idx: int, live: Pose
@@ -353,8 +379,8 @@ class LoopPipeline:
         applied to the loop keyframe."""
         old = _kf_pose(arena, cur_kf)
         rel = relative_pose(_kf_pose(arena, cand), Pose(q=meas_q, t=meas_t))
-        add_edge(self.edges, edge_idx, cand, cur_kf, rel, LOOP_EDGE_WEIGHT,
-                 is_loop=True)
+        _add_edge(self.edges, edge_idx, cand, cur_kf, rel, LOOP_EDGE_WEIGHT,
+                  arena.max_keyframes, is_loop=True)
         arena, new_kf_pose, _ = self._pgo(arena, cur_kf)
         return arena, _delta_apply(old, new_kf_pose, live)
 

@@ -6,7 +6,14 @@ incidence matrix; covisibility queries are masked matrix-vector products.
 
 Overflow policy as in JAX: writes beyond capacity are dropped and the
 counters saturate.  JAX's `.at[...].set(mode="drop")` has no torch
-counterpart, so `_set_rows` selects the kept rows and copies only those.
+counterpart, and selecting the kept entries (`torch.nonzero`) waits for
+the device, so every write here is a scatter of the whole batch in which
+a dropped entry writes back a value its destination already holds or is
+given (`_append`, `_set_rows`): no host sync, and no two entries
+write different values to one place.  Every `add_*` takes an optional 0-d
+bool `enable` that gates its rows and its counter increments: the masked
+form of the JAX tracker's `lax.cond` keyframe branch.
+
 Unlike the functional JAX arena, the `add_*` functions update the arena's
 tensors IN PLACE (they return the arena with new counters): the engine
 holds one arena and never reads an old one, so no copy of the 8 MB of
@@ -15,7 +22,7 @@ incidence and descriptors is made per frame.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -83,76 +90,113 @@ def empty_arena(cfg: MapConfig, device="cpu") -> MapArena:
     )
 
 
+def _append(base: Tensor, keep: Tensor, n_rows: int, *writes) -> None:
+    """Append a batch of entries at row `base`: for each (dst, src) of
+    `writes`, the kept entries, in order, go to rows base, base + 1, ...
+    of dst.  A dropped entry goes to a row of its own after them (mod
+    n_rows) and writes back that row's value; with more entries than rows
+    that cannot be, and `_set_rows` redirects the dropped ones instead."""
+    k = keep.to(torch.int64)
+    kept_before = torch.cumsum(k, 0) - k
+    if k.shape[0] > n_rows:
+        rows = torch.clamp(base + kept_before, max=n_rows - 1)
+        for dst, src in writes:
+            _set_rows(dst, rows, src, keep)
+        return
+    dropped_before = torch.arange(k.shape[0], device=k.device) - kept_before
+    rows = torch.remainder(torch.where(
+        keep, base + kept_before, base + torch.sum(k) + dropped_before),
+        n_rows)
+    for dst, src in writes:
+        mask = keep.reshape(-1, *([1] * (src.dim() - 1)))
+        dst.index_copy_(0, rows, torch.where(mask, src.to(dst.dtype),
+                                             dst.index_select(0, rows)))
+
+
 def _set_rows(dst: Tensor, rows: Tensor, src: Tensor, keep: Tensor) -> None:
-    """dst[rows[i]] = src[i] where keep[i]; other rows are dropped.  The
-    kept rows are distinct (fresh slots or deduplicated matches), so the
-    copy is deterministic."""
-    sel = torch.nonzero(keep).squeeze(1)
-    dst.index_copy_(0, rows[sel].long(), src[sel].to(dst.dtype))
+    """dst[rows[i]] = src[i] where keep[i], for kept rows that are
+    distinct but dropped entries that may share a row with them: a
+    dropped entry writes the first kept entry's value to its row again,
+    or row 0's own value to row 0 when nothing is kept."""
+    src = src.to(dst.dtype)
+    rows = rows.to(torch.int64)
+    first = torch.argmax(keep.to(torch.int32)).reshape(1)    # 0 when none
+    any_kept = torch.any(keep)
+    zero = torch.zeros_like(first)
+    row0 = rows.index_select(0, first) * any_kept
+    val0 = torch.where(any_kept, src.index_select(0, first),
+                       dst.index_select(0, zero))
+    mask = keep.reshape(-1, *([1] * (src.dim() - 1)))
+    dst.index_copy_(0, torch.where(keep, rows, row0),
+                    torch.where(mask, src, val0))
 
 
-def add_keyframe(arena: MapArena, pose: Pose,
-                 time: Tensor) -> Tuple[MapArena, Tensor]:
+def _enabled(mask: Tensor, enable) -> Tensor:
+    return mask if enable is None else mask & enable
+
+
+def add_keyframe(arena: MapArena, pose: Pose, time: Tensor,
+                 enable: Optional[Tensor] = None) -> Tuple[MapArena, Tensor]:
     """Append a keyframe; returns (arena, slot) with slot == K when the
-    pool is full (nothing is written then)."""
+    pool is full (nothing is written then, nor when `enable` is False)."""
     K = arena.max_keyframes
     slot = arena.n_kf
     has_room = slot < K
-    one = has_room.reshape(1)
-    rows = slot.reshape(1)
-    _set_rows(arena.kf_q, rows, pose.q[None], one)
-    _set_rows(arena.kf_t, rows, pose.t[None], one)
-    _set_rows(arena.kf_time, rows, time.reshape(1), one)
-    _set_rows(arena.kf_valid, rows, one, one)
-    arena = arena._replace(n_kf=torch.clamp(arena.n_kf + 1, max=K))
+    keep = _enabled(has_room, enable).reshape(1)
+    _append(slot, keep, K, (arena.kf_q, pose.q[None]),
+            (arena.kf_t, pose.t[None]), (arena.kf_time, time.reshape(1)),
+            (arena.kf_valid, keep))
+    step = torch.ones_like(slot) if enable is None else enable.to(slot.dtype)
+    arena = arena._replace(n_kf=torch.clamp(arena.n_kf + step, max=K))
     return arena, torch.where(has_room, slot, torch.full_like(slot, K))
 
 
 def add_landmarks(arena: MapArena, positions: Tensor, descs: Tensor,
-                  valid: Tensor) -> Tuple[MapArena, Tensor]:
+                  valid: Tensor, enable: Optional[Tensor] = None
+                  ) -> Tuple[MapArena, Tensor]:
     """Batch-insert landmarks [N]; returns (arena, slots [N]) with
-    slot == L for dropped/invalid rows."""
+    slot == L for dropped/invalid rows (all of them when disabled)."""
     L = arena.max_landmarks
+    valid = _enabled(valid, enable)
     order = torch.cumsum(valid.to(torch.int32), 0, dtype=torch.int32) - 1
     big = torch.full_like(order, L)
     slots = torch.where(valid, arena.n_lm + order, big)
     slots = torch.where(slots < L, slots, big)
     keep = slots < L
-    _set_rows(arena.lm_pos, slots, positions, keep)
-    _set_rows(arena.lm_desc, slots, descs, keep)
-    _set_rows(arena.lm_valid, slots, keep, keep)
+    _append(arena.n_lm, keep, L, (arena.lm_pos, positions),
+            (arena.lm_desc, descs), (arena.lm_valid, keep))
     n_lm = torch.clamp(arena.n_lm + torch.sum(valid.to(torch.int32)), max=L)
     return arena._replace(n_lm=n_lm.to(torch.int32)), slots
 
 
 def add_observations(arena: MapArena, kf_slot: Tensor, lm_slots: Tensor,
                      uv: Tensor, depth: Tensor, descs: Tensor,
-                     valid: Tensor) -> MapArena:
+                     valid: Tensor, enable: Optional[Tensor] = None
+                     ) -> MapArena:
     """Record keyframe -> landmark observations: COO rows, incidence bits
     and the most-recent-descriptor refresh."""
-    L = arena.max_landmarks
+    K, L = arena.max_keyframes, arena.max_landmarks
     O = arena.max_observations
-    ok = valid & (lm_slots < L) & (kf_slot < arena.max_keyframes)
+    ok = _enabled(valid, enable) & (lm_slots < L) & (kf_slot < K)
 
-    order = torch.cumsum(ok.to(torch.int32), 0, dtype=torch.int32) - 1
-    big = torch.full_like(order, O)
-    rows = torch.where(ok, arena.n_obs + order, big)
-    rows = torch.where(rows < O, rows, big)
-    in_obs = rows < O
-    kf_full = kf_slot.to(torch.int32).expand(lm_slots.shape)
-
-    _set_rows(arena.obs_kf, rows, kf_full, in_obs)
-    _set_rows(arena.obs_lm, rows, lm_slots, in_obs)
-    _set_rows(arena.obs_uv, rows, uv, in_obs)
-    _set_rows(arena.obs_depth, rows, depth, in_obs)
-    _set_rows(arena.obs_valid, rows, ok, in_obs)
-    # incidence row of this keyframe and the descriptor refresh: ok rows
-    # only (their slots are distinct and in range)
-    sel = torch.nonzero(ok).squeeze(1)
-    lm_sel = lm_slots[sel].long()
-    arena.inc[kf_slot.long().clamp(max=arena.max_keyframes - 1), lm_sel] = True
-    arena.lm_desc.index_copy_(0, lm_sel, descs[sel])
-    n_obs = torch.clamp(arena.n_obs + torch.sum(ok.to(torch.int32)), max=O)
+    n_ok = torch.sum(ok.to(torch.int32))
+    in_obs = ok & (arena.n_obs + torch.cumsum(ok.to(torch.int32), 0) <= O)
+    _append(arena.n_obs, in_obs, O,
+            (arena.obs_kf, kf_slot.to(torch.int32).expand(lm_slots.shape)),
+            (arena.obs_lm, lm_slots), (arena.obs_uv, uv),
+            (arena.obs_depth, depth), (arena.obs_valid, ok))
+    # this keyframe's incidence row, rebuilt with the ok entries' bits (a
+    # dropped keyframe has none: row K - 1 is written back unchanged)
+    lm_idx = lm_slots.to(torch.int64)
+    kf_row = torch.clamp(kf_slot.to(torch.int64), max=K - 1).reshape(1)
+    hit = torch.zeros(L + 1, dtype=torch.bool, device=ok.device)
+    hit.index_fill_(0, torch.where(ok, lm_idx, L), True)
+    arena.inc.index_copy_(0, kf_row,
+                          arena.inc.index_select(0, kf_row) | hit[None, :L])
+    # the descriptor refresh: ok slots are distinct, the others may repeat
+    # them
+    _set_rows(arena.lm_desc, torch.clamp(lm_idx, max=L - 1), descs, ok)
+    n_obs = torch.clamp(arena.n_obs + n_ok, max=O)
     return arena._replace(n_obs=n_obs.to(torch.int32))
 
 

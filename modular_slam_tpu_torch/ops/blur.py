@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from modular_slam_tpu_torch.utils.device import constant
+
 Tensor = torch.Tensor
 
 
@@ -32,6 +34,7 @@ def blur_patches(patches: Tensor, ksize: int = 7,
     [N, P, P] -> [N, P-2r, P-2r] (r = ksize//2), as two banded matmuls in
     full float32 (TF32 is off, see the package docstring)."""
     P = patches.shape[-1]
-    B = torch.as_tensor(_band(P, ksize, sigma), device=patches.device)
+    B = constant(("blur_band", P, ksize, sigma),
+                 lambda: _band(P, ksize, sigma), patches.device)
     hp = torch.einsum("nyi,ij->nyj", patches, B)      # [N, P, Q]
     return torch.einsum("niw,ij->njw", hp, B)         # [N, Q, Q]

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from modular_slam_tpu_torch.ops.brief_pattern import PATTERN
+from modular_slam_tpu_torch.utils.device import constant
 
 Tensor = torch.Tensor
 
@@ -74,12 +75,14 @@ def brief_from_patches(patches_flat: Tensor, angles: Tensor,
     two endpoints of each pattern pair rotated by the bin's angle."""
     # a tensor divisor: CUDA turns division by a Python scalar into a
     # multiplication by its reciprocal, which rounds differently
-    step = torch.tensor(2.0 * np.pi / n_bins, dtype=angles.dtype,
-                        device=angles.device)
+    step = constant(("brief_step", n_bins, angles.dtype),
+                    lambda: torch.tensor(2.0 * np.pi / n_bins,
+                                         dtype=angles.dtype), angles.device)
     b = torch.remainder(torch.round(angles / step).to(torch.int64), n_bins)
     pq = (torch.clamp(torch.round(patches_flat), 0.0, 255.0)
           - 128.0).to(torch.int8)
-    sel = torch.as_tensor(_bin_sample_index_np(n_bins),
-                          device=patches_flat.device)[b]           # [N, 512]
+    sel = constant(("brief_sel", n_bins),
+                   lambda: _bin_sample_index_np(n_bins),
+                   patches_flat.device)[b]                         # [N, 512]
     v = torch.gather(pq, 1, sel)
     return (v[:, :256] < v[:, 256:]).to(torch.uint8)

@@ -29,6 +29,7 @@ from modular_slam_tpu_torch.ops.orient import ic_angle_from_patches
 from modular_slam_tpu_torch.ops.pyramid import build_pyramid
 from modular_slam_tpu_torch.types import (Descriptors, Features, Keypoints,
                                           bits_to_pm1, pack_bits)
+from modular_slam_tpu_torch.utils.device import constant
 
 Tensor = torch.Tensor
 
@@ -144,8 +145,11 @@ def detect(gray: Tensor, depth: Tensor, cfg: DetectorConfig) -> Features:
     bits = brief_from_patches(bp.reshape(bp.shape[0], -1), angles)
 
     # --- level-0 coords + depth -------------------------------------------
-    scales = torch.tensor([cfg.scale_factor ** i for i in range(cfg.n_levels)],
-                          dtype=torch.float32, device=dev)
+    scales = constant(
+        ("level_scales", cfg.scale_factor, cfg.n_levels),
+        lambda: torch.tensor([cfg.scale_factor ** i
+                              for i in range(cfg.n_levels)],
+                             dtype=torch.float32), dev)
     uv = yx_sel.flip(-1).to(torch.float32) * scales[lvl_sel.long()][:, None]
     ix = torch.clamp(torch.round(uv[:, 0]).to(torch.int64), 0, W0 - 1)
     iy = torch.clamp(torch.round(uv[:, 1]).to(torch.int64), 0, H0 - 1)

@@ -8,6 +8,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from modular_slam_tpu_torch.utils.device import constant
+
 Tensor = torch.Tensor
 
 IC_RADIUS = 15  # 31 px patch
@@ -29,7 +31,8 @@ def ic_angle_from_patches(patches: Tensor, radius: int = IC_RADIUS) -> Tensor:
     P = patches.shape[-1]
     c = P // 2
     crop = patches[:, c - radius:c + radius + 1, c - radius:c + radius + 1]
-    mask = torch.as_tensor(_mask_np(radius), device=patches.device)
+    mask = constant(("ic_mask", radius), lambda: _mask_np(radius),
+                    patches.device)
     coords = torch.arange(-radius, radius + 1, dtype=patches.dtype,
                           device=patches.device)
     w = crop * mask

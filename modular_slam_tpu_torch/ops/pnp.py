@@ -187,8 +187,10 @@ def ransac_pnp(cam: Camera, pts_world: Tensor, uv: Tensor, pts_cam: Tensor,
     inl_all = _inlier_mask(cam, hyp, pts_world, uv, z_meas, valid, thresh2,
                            cfg.depth_inlier_m)                # [H+1, N]
     counts = torch.sum(inl_all.to(torch.int32), dim=-1, dtype=torch.int32)
-    best = torch.argmax(counts)
-    best_pose = Pose(q=hyp.q[best], t=hyp.t[best])
+    # gathers with a 1-d index: a 0-d tensor index reads it back to the host
+    best = torch.argmax(counts).reshape(1)
+    best_pose = Pose(q=hyp.q.index_select(0, best)[0],
+                     t=hyp.t.index_select(0, best)[0])
 
     # --- polish on inliers ------------------------------------------------
     inl = _inlier_mask(cam, best_pose, pts_world, uv, z_meas, valid, thresh2,
@@ -202,7 +204,7 @@ def ransac_pnp(cam: Camera, pts_world: Tensor, uv: Tensor, pts_cam: Tensor,
     inliers = _inlier_mask(cam, refined, pts_world, uv, z_meas, valid,
                            thresh2, cfg.depth_inlier_m)
     n_inl = torch.sum(inliers.to(torch.int32), dtype=torch.int32)
-    keep_refined = n_inl >= counts[best]
+    keep_refined = n_inl >= counts.index_select(0, best)[0]
     final_q = torch.where(keep_refined, refined.q, best_pose.q)
     final_t = torch.where(keep_refined, refined.t, best_pose.t)
     final_inl = torch.where(keep_refined, inliers, inl)

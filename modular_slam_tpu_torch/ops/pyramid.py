@@ -3,10 +3,12 @@ modular_slam_tpu/ops/pyramid.py): 8 levels x1.2, each level resized from
 the previous with bilinear interpolation.
 
 `F.interpolate(bilinear, align_corners=False, antialias=False)` is the
-counterpart of `jax.image.resize(method="linear", antialias=False)`.  The
-two round differently: on a 640x480 chain they differ by <= 5e-5 inside
-the image and by < 1e-3 at a few edge pixels of the small levels, where
-JAX renormalises its one-sided triangle weights.
+counterpart of `jax.image.resize(method="linear", antialias=False)`.  Every
+sample position lies strictly inside the previous level, so both blend
+the same two pixels and no edge rule differs.  They differ by rounding:
+within 1e-4 except along one row or column of a level, where XLA's fused
+multiply-add and ATen round one sample position to neighbouring floats
+(tests/test_torch_detector.py::test_pyramid_differences_are_sample_rounding).
 """
 
 from __future__ import annotations

@@ -95,6 +95,9 @@ class TrackResult(NamedTuple):
     tracking_ok: Tensor     # bool
     new_keyframe: Tensor    # bool — a keyframe was added this frame
     kf_slot: Tensor         # int32 — new keyframe slot, -1 when none
+    # bool — in-scan relocalization rescued this frame (the chunked path
+    # with relocalization on; None elsewhere)
+    relocalized: Tensor = None
 
 
 def pack_bits(bits: Tensor) -> Tensor:

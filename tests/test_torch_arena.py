@@ -3,6 +3,7 @@ JAX package: every insertion, including the drop-on-overflow policy and
 the saturating counters, and the covisibility queries — all exact."""
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 import torch
 
@@ -26,7 +27,7 @@ def _assert_arena_equal(tarena, jarena):
                                       err_msg=f)
 
 
-def _step(rng, k):
+def _step(rng, k, N=N):
     pose_q = rng.normal(size=4).astype(np.float32)
     pose_q /= np.linalg.norm(pose_q)
     pose_t = rng.normal(size=3).astype(np.float32)
@@ -114,3 +115,51 @@ def test_khop_and_visible_landmarks_match_jax():
                 np.testing.assert_array_equal(
                     ta.visible_landmarks(tarena, tmask).numpy(),
                     np.asarray(ja.visible_landmarks(jarena, jmask)))
+
+
+@pytest.mark.parametrize("enable,n", [(False, N), (True, N), (True, 30)])
+def test_gated_insertions(enable, n):
+    """The tracker's masked keyframe branch: every insert under a 0-d
+    `enable` tensor.  False leaves the arena bit-identical (counters
+    included); True equals the JAX inserts, overflow and drops included,
+    also with batches larger than the landmark pool (n=30 > L=24)."""
+    rng = np.random.default_rng(1)
+    jarena = ja.empty_arena(CFG)
+    tarena = ta.empty_arena(CFG)
+    on = torch.tensor(enable)
+    for k in range(6):
+        (q, t, pos, desc, uv, depth, new, obs_old,
+         old_slots) = _step(rng, k, n)
+        before = [x.clone() for x in tarena]
+        tarena, tkf = ta.add_keyframe(
+            tarena, TPose(torch.from_numpy(q), torch.from_numpy(t)),
+            torch.tensor(np.float32(k)), enable=on)
+        tarena = ta.add_observations(
+            tarena, tkf, torch.from_numpy(old_slots), torch.from_numpy(uv),
+            torch.from_numpy(depth), torch.from_numpy(desc),
+            torch.from_numpy(obs_old), enable=on)
+        tarena, tslots = ta.add_landmarks(tarena, torch.from_numpy(pos),
+                                          torch.from_numpy(desc),
+                                          torch.from_numpy(new), enable=on)
+        tarena = ta.add_observations(
+            tarena, tkf, tslots, torch.from_numpy(uv),
+            torch.from_numpy(depth), torch.from_numpy(desc),
+            torch.from_numpy(new), enable=on)
+        if not enable:
+            assert all(torch.equal(a, b) for a, b in zip(before, tarena))
+            assert bool((tslots == CFG.max_landmarks).all())
+            continue
+        jarena, jkf = ja.add_keyframe(jarena, JPose(jnp.asarray(q),
+                                                    jnp.asarray(t)),
+                                      jnp.float32(k))
+        jarena = ja.add_observations(
+            jarena, jkf, jnp.asarray(old_slots), jnp.asarray(uv),
+            jnp.asarray(depth), jnp.asarray(desc), jnp.asarray(obs_old))
+        jarena, jslots = ja.add_landmarks(jarena, jnp.asarray(pos),
+                                          jnp.asarray(desc), jnp.asarray(new))
+        jarena = ja.add_observations(jarena, jkf, jslots, jnp.asarray(uv),
+                                     jnp.asarray(depth), jnp.asarray(desc),
+                                     jnp.asarray(new))
+        assert int(tkf) == int(jkf)
+        np.testing.assert_array_equal(tslots.numpy(), np.asarray(jslots))
+        _assert_arena_equal(tarena, jarena)

@@ -701,6 +701,40 @@ def test_port_compact_global_ba_matches_full():
     assert dt.max() < 2e-3, dt
 
 
+def _float64(arena):
+    return type(arena)(*(x.double() if x.is_floating_point() else x.clone()
+                         for x in arena))
+
+
+def test_port_compact_global_ba_follows_float64_inputs():
+    """A float64 arena gives a float64 solve (what the card-against-CPU
+    check of a converged global BA compares): close to the float32 solve,
+    and moved by less than 1e-9 when the landmarks move by 1e-7
+    relative."""
+    jarena, _ = _corrupt(_noisy()[0])
+    _, tcfg = _cfgs(gba_max_iterations=10, gba_cg_iters=200,
+                    gba_early_stop_rtol=None)
+    arena = _port_arena(jarena)
+    tier = tba.global_ba_tier(arena)
+    gba = tba.make_global_ba_compact(tcfg, tier, device="cpu")
+    f32, s32 = gba(_port_arena(jarena))
+    f64, s64 = gba(_float64(arena))
+    assert f64.kf_t.dtype == f64.lm_pos.dtype == torch.float64
+    assert s64.final_cost.dtype == torch.float64
+    assert f32.kf_t.dtype == s32.final_cost.dtype == torch.float32
+    _same_solution(f64.kf_q.float(), f64.kf_t.float(), f64.lm_pos.float(),
+                   f32.kf_q, f32.kf_t, f32.lm_pos, "float64 vs float32")
+    assert torch.equal(f64.obs_valid, f32.obs_valid)
+    g = torch.Generator().manual_seed(0)
+    moved = _float64(arena)
+    moved = moved._replace(lm_pos=moved.lm_pos * (1 + 1e-7 * torch.randn(
+        moved.lm_pos.shape, generator=g, dtype=torch.float64)))
+    again, _ = gba(moved)
+    n = int(arena.n_kf)
+    assert float((again.kf_t[:n] - f64.kf_t[:n]).abs().max()) < 1e-9
+    assert float((again.kf_q[:n] - f64.kf_q[:n]).abs().max()) < 1e-9
+
+
 def test_port_early_stop_reaches_the_full_run_from_hard_init():
     jarena, _, _ = _build_problem(pose_noise=1.2, lm_noise=1.0, seed=5)
     bcfg = BackendConfig(max_iterations=25, init_lambda=1e-9,

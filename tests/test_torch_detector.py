@@ -78,6 +78,31 @@ def test_pyramid_levels_close(hw):
                                    atol=1e-3)
 
 
+@pytest.mark.parametrize("hw", [(120, 160), (240, 320), (480, 640)])
+def test_pyramid_differences_are_sample_rounding(hw):
+    """What sets the pyramid's differences from `jax.image.resize`.  No
+    edge rule: every sample position (i + 0.5) * in / out - 0.5 lies
+    strictly inside [0, in - 1], so both resizers blend the same two
+    pixels with weights that sum to 1 and JAX's renormalisation of
+    one-sided weights never applies.  The differences above 1e-4 lie on
+    a single row or column per level — one sample position that XLA's
+    fused multiply-add and ATen's float32 arithmetic round to neighbouring
+    floats (a level resized from such a level inherits it) — and the rest
+    of the level is within 1e-4."""
+    cfg = DetectorConfig()
+    shapes = tpyr.pyramid_shapes(*hw, cfg)
+    for (h0, w0), (h1, w1) in zip(shapes[:-1], shapes[1:]):
+        for n_in, n_out in ((h0, h1), (w0, w1)):
+            pos = (np.arange(n_out) + 0.5) * n_in / n_out - 0.5
+            assert pos.min() > 0.0 and pos.max() < n_in - 1
+    img = np.random.default_rng(1).uniform(0, 255, hw).astype(np.float32)
+    got = tpyr.build_pyramid(torch.from_numpy(img), cfg)
+    ref = jpyr.build_pyramid(jnp.asarray(img), cfg)
+    for g, r in zip(got, ref):
+        big = np.argwhere(np.abs(g.numpy() - np.asarray(r)) > 1e-4)
+        assert len(set(big[:, 0])) <= 1 or len(set(big[:, 1])) <= 1, big
+
+
 def test_candidates_exact_given_jax_levels():
     cfg = tiny_test_config().detector
     rgb, _ = _frame(tiny_test_config())

@@ -234,9 +234,10 @@ def test_async_backend_merges_everything_and_keeps_appended_slots():
 
 
 def test_unported_features_raise():
-    """Every preset builds; what is left unported — deferred closure
-    decisions, which belong to the chunked path — raises naming its
-    ROADMAP.md item."""
+    """Every preset builds, an unknown one raises KeyError, and deferred
+    closure decisions — the deferred chunk path's — are ported: with
+    `defer_closure=True` a keyframe's verification is parked, not decided,
+    until `resolve_pending`."""
     from modular_slam_tpu_torch.models import make_pipeline
 
     cfg = tiny_test_config()
@@ -246,9 +247,16 @@ def test_unported_features_raise():
     assert full.enable_loop_closure and full.enable_relocalization
     with pytest.raises(KeyError):
         make_pipeline("nonesuch", cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        full._loop.on_new_keyframe(full.arena, full.state, 0, None,
-                                   full.sampler, defer_closure=True)
+    full.process(*_plane_frames(cfg, n=1)[0])
+    lp = full._loop
+    full.arena, full.state, closed = lp.on_new_keyframe(
+        full.arena, full.state, 0, full.last_features, full.sampler,
+        defer_closure=True)
+    assert not closed and lp.has_pending_closure
+    assert lp._pending_verify[0][:2] == (lp._kf_counter, 0)
+    full.arena, full.state, closed = lp.resolve_pending(full.arena,
+                                                        full.state)
+    assert not closed and not lp.has_pending_closure
 
 
 def test_highwater_raises_until_lifecycle_is_ported():

@@ -1,8 +1,9 @@
 """The port runs with jax blocked: in a subprocess where importing jax
 fails, import modular_slam_tpu_torch and run three frames each of the
-odometry preset, the slam preset (local BA) and the full preset (loop
-closure, relocalization, and map compaction in a 2-keyframe pool) on the
-CPU; `chip_smoke.py` imports too, and without a card exits non-zero."""
+odometry preset (frame by frame and through the chunked path), the slam
+preset (local BA) and the full preset (loop closure, relocalization, and
+map compaction in a 2-keyframe pool) on the CPU; `chip_smoke.py` imports
+too, and without a card exits non-zero."""
 
 import os
 import subprocess
@@ -25,6 +26,9 @@ SCRIPT = textwrap.dedent("""
     system = SlamSystem(cfg, device="cpu", seed=0, enable_backend=False)
     codes = [system.process(*f) for f in gen.sequence(poses)]
     assert codes == [SlamResult.SUCCESS] * 3, codes
+    chunked = SlamSystem(cfg, device="cpu", seed=0, enable_backend=False)
+    chunked.run(gen.sequence(poses), chunk=2)
+    assert [bool(r.tracking_ok) for r in chunked.results] == [True] * 3
     slam = make_pipeline("slam", cfg, device="cpu", seed=0)
     codes = [slam.process(*f) for f in gen.sequence(poses)]
     assert codes == [SlamResult.SUCCESS] * 3, codes
