@@ -88,8 +88,23 @@ Phases, each printing one JSON line:
               as the loop pipeline solves it) on "cpu" and on "cuda",
               within 1e-4, the same in float32 beside it, and one traced
               call on the card
-  kernels     every kernel: launches on the chunked full path (and by
-              path: odometry, full, chunk_odometry, chunk),
+  cli         the user's entry point: `eval/make_dataset.write_dataset`
+              writes the loop flagship's trajectory and noise at 640x480
+              (48 frames a lap, 2 laps, 1.2 m, 3 cm, seed 3; the camera
+              fx = width), then `python -m modular_slam_tpu_torch.run
+              --pipeline full --ate --save-checkpoint` with the flagship's
+              overrides runs as a subprocess (chunks of 16, wire format,
+              deferred): 96/96 frames tracked, ATE below CLI_ATE_BOUND_M;
+              one in-process `run.main` of the odometry preset on the same
+              dataset: K1 launched once per frame, K2 and its merge once
+              per tracked frame after the bootstrap, no plain version
+              called; the checkpoint loaded into a "cuda" and a "cpu"
+              system with equal arenas, and the last 16 frames, in
+              reverse order (they continue from the checkpoint's pose),
+              tracked by the "cuda" one; the PNG decoders that ran
+  kernels     every kernel: launches on the CLI path (`cli`, this
+              slice's main path) and by path (odometry, full,
+              chunk_odometry, chunk, cli),
               error, kernel and plain-version device times, the bound
               (bytes or operations at the H100's published peaks), the
               share of it reached, and the library call's time where one
@@ -108,9 +123,11 @@ import collections
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 N_FRAMES = 48          # odometry phase
@@ -140,8 +157,14 @@ RELOC_TOL_M = 0.05
 PGO_POSE_TOL = 1e-4         # pgo_cpu_vs_gpu (m and rad)
 PGO_COST_RTOL = 1e-4
 TIMED_RUNS = 25
-CHUNK = 16                  # chunk_* phases: frames per chunk
+CHUNK = 16                  # chunk_* and cli phases: frames per chunk
 RELOC_CHUNK = 8             # chunk_relocalize: the kidnap in chunk 2
+CLI_OVERRIDES = ("tracker.new_keyframe_min_inliers=300",
+                 "loop.min_gap_keyframes=32", "loop.min_score=0.05",
+                 "loop.min_inliers=25")   # the flagship's (loop_config)
+CLI_ATE_BOUND_M = 0.1       # cli: frame ATE of the CLI's full run
+CLI_RESUME_FRAMES = 16
+CLI_TIMEOUT_S = 600
 LEVEL_SHAPES = [(480, 640), (400, 533), (333, 444), (278, 370),
                 (231, 309), (193, 257), (161, 214), (134, 179)]
 # Published peaks of one H100 SXM (dense): HBM, int8 tensor cores, f32
@@ -1523,6 +1546,164 @@ def phase_chunk_relocalize(torch) -> None:
               "reloc_off": first[False]}})
 
 
+def _plain_calls():
+    """Count calls of the kernels' plain versions; -> (counts, restore)."""
+    from modular_slam_tpu_torch.ops import fast, match
+
+    calls = collections.Counter()
+    saved = []
+    for mod, name in ((fast, "fast_score_plain"),
+                      (match, "match_descriptors_plain"),
+                      (match, "hamming_2nn_splits_plain"),
+                      (match, "merge_tiles"), (match, "_ratio_test")):
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def counted(*a, name=name, fn=fn, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+
+        setattr(mod, name, counted)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return calls, restore
+
+
+def write_cli_dataset(ds_dir: str) -> dict:
+    """The cli phase's dataset: the loop flagship's trajectory and noise
+    at 640x480, written by the port's dataset tool (its camera, fx =
+    width)."""
+    from modular_slam_tpu_torch.eval.make_dataset import write_dataset
+
+    return write_dataset(ds_dir, LOOP_FRAMES_PER_LAP, laps=2, width=640,
+                         height=480, depth_noise=LOOP_DEPTH_NOISE_M, seed=3,
+                         radius=LOOP_RADIUS_M)
+
+
+def cli_full_command(ds_dir: str, traj: str, *extra: str) -> list:
+    """The runner's full-preset command on that dataset, with the
+    flagship's overrides."""
+    sets = [a for ov in CLI_OVERRIDES for a in ("--set", ov)]
+    return [sys.executable, "-m", "modular_slam_tpu_torch.run", "--dataset",
+            ds_dir, "--pipeline", "full", "--out", traj, "--ate", *extra,
+            *sets]
+
+
+def phase_cli(torch, kernels, workdir: str) -> dict:
+    """The port's command-line runner on a dataset written by its dataset
+    tool, as a user runs it: the full preset in a subprocess, the
+    odometry preset in process, and the full run's checkpoint loaded on
+    the card and on the CPU.  -> the in-process run's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from modular_slam_tpu_torch import run
+    from modular_slam_tpu_torch.config import SlamConfig
+    from modular_slam_tpu_torch.io import TumRgbdDataset, native, tum
+    from modular_slam_tpu_torch.models import make_pipeline
+    from modular_slam_tpu_torch.utils.checkpoint import load_checkpoint
+    from modular_slam_tpu_torch.utils.state import arena_to_numpy
+
+    ds_dir = os.path.join(workdir, "loop")
+    t0 = time.perf_counter()
+    n = write_cli_dataset(ds_dir)["frames"]
+    write_s = time.perf_counter() - t0
+    sets = [a for ov in CLI_OVERRIDES for a in ("--set", ov)]
+
+    traj, ck = (os.path.join(workdir, f) for f in ("full.txt", "full.npz"))
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli_full_command(ds_dir, traj,
+                                           "--save-checkpoint", ck),
+                          cwd=root, capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    command_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli: the runner exited "
+                                f"{proc.returncode}: {proc.stderr[-3000:]}")
+    full = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(full["frames"] == n and full["tracked_ok"] == n,
+          f"cli: {full['tracked_ok']} of {full['frames']} frames tracked, "
+          f"{n} expected")
+    check(all(k in full for k in ("loop_closures", "fps", "wall_s")),
+          f"cli: report keys {sorted(full)}")
+    ate = full.get("ate", {}).get("rmse")
+    check(ate is not None and ate < CLI_ATE_BOUND_M,
+          f"cli: ATE {ate} m, bound {CLI_ATE_BOUND_M} m ({full})")
+
+    # the odometry preset through run.main in this process: the launches
+    tum.DECODED.clear()
+    calls, restore = _plain_calls()
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = run.main(["--dataset", ds_dir, "--pipeline", "odometry",
+                           "--out", os.path.join(workdir, "odo.txt"),
+                           "--ate", *sets])
+    finally:
+        launches = kernels.launch_counts()
+        restore()
+    check(rc == 0, f"cli: odometry run exited {rc}")
+    odo = json.loads(out.getvalue().strip().splitlines()[-1])
+    tracked = odo["tracked_ok"]
+    check(odo["frames"] == tracked == n,
+          f"cli: odometry tracked {tracked} of {odo['frames']}")
+    want = {"fast_score": n, "hamming_2nn": tracked - 1,
+            "hamming_merge": tracked - 1}
+    check(launches == want, f"cli: odometry launches {launches}, expected "
+                            f"{want} (K2: every tracked frame but the "
+                            f"bootstrap)")
+    check(not calls, f"cli: plain versions ran on the card: {dict(calls)}")
+    decoders = dict(tum.DECODED)
+
+    # the full run's checkpoint on the card and on the CPU
+    ds = TumRgbdDataset(ds_dir)
+    cfg = run.apply_overrides(SlamConfig().replace(camera=ds.camera),
+                              CLI_OVERRIDES)
+    systems = {}
+    for dev in ("cuda", "cpu"):
+        systems[dev] = make_pipeline("full", cfg, device=dev, seed=1)
+        load_checkpoint(ck, systems[dev])
+    a_gpu, a_cpu = (arena_to_numpy(systems[d].arena) for d in ("cuda",
+                                                               "cpu"))
+    differ = [k for k in a_gpu if not np.array_equal(a_gpu[k], a_cpu[k])]
+    check(not differ, f"cli: checkpoint arenas differ in {differ}")
+    gpu = systems["cuda"]
+    t_last = gpu.trajectory[-1][0]
+    resume = []
+    for k, i in enumerate(range(n - 1, n - 1 - CLI_RESUME_FRAMES, -1)):
+        rgb, depth, _ = ds.load(i)
+        resume.append((rgb, depth, t_last + (k + 1) / 30.0))
+    gpu.run(iter(resume), chunk=CHUNK)
+    torch.cuda.synchronize()
+    resumed_ok = sum(bool(r.tracking_ok) for r in gpu.results)
+    check(len(gpu.results) == CLI_RESUME_FRAMES
+          and resumed_ok == CLI_RESUME_FRAMES,
+          f"cli: resumed run tracked {resumed_ok} of {len(gpu.results)}")
+    check(len(gpu.trajectory) == n + CLI_RESUME_FRAMES,
+          f"cli: resumed trajectory {len(gpu.trajectory)} rows")
+
+    emit({"phase": "cli", "frames": n, "size": "640x480",
+          "dataset_write_s": write_s,
+          "full": {**full, "ms_per_frame": 1e3 * full["wall_s"] / n,
+                   "command_s": command_s, "ate_bound_m": CLI_ATE_BOUND_M,
+                   "overrides": list(CLI_OVERRIDES)},
+          "odometry": {**odo, "ms_per_frame": 1e3 * odo["wall_s"] / n,
+                       "launches": launches, "plain_calls": dict(calls)},
+          "checkpoint": {"bytes": os.path.getsize(ck),
+                         "arenas_equal_cuda_cpu": True,
+                         "resumed_frames": CLI_RESUME_FRAMES,
+                         "resumed_tracked": resumed_ok,
+                         "resumed_keyframes": gpu.n_keyframes},
+          "png_decoders": decoders, "native_loader": native.available()})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1573,17 +1754,23 @@ def main() -> int:
     phase_relocalize(torch)
     phase_chunk_relocalize(torch)
     phase_pgo_cpu_vs_gpu(torch, lcfg, pgo_inputs)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        cli_launches = phase_cli(torch, kernels, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     timing = {"fast_score": k1, "hamming_2nn": k2, "hamming_merge": merge}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source_relpath,
-         "replaces": k.replaces, "launches": chunk_launches[k.name],
+         "replaces": k.replaces, "launches": cli_launches[k.name],
          "launches_by_path": {"odometry": launches[k.name],
                               "full": full_launches[k.name],
                               "chunk_odometry": chunk_odo_launches[k.name],
-                              "chunk": chunk_launches[k.name]},
+                              "chunk": chunk_launches[k.name],
+                              "cli": cli_launches[k.name]},
          **{key: timing[k.name][key] for key in keys}}
         for k in kernels.KERNELS.values()]})
 

@@ -12,7 +12,11 @@ Ported so far: the per-frame odometry path (detect -> Hamming 2-NN ->
 RANSAC-PnP -> map arena), the bundle-adjustment backend (`backend/`), and
 loop closure, pose-graph optimization, relocalization and the map
 lifecycle (`loop/`, `backend/posegraph.py`, `map/lifecycle.py`), i.e. the
-`odometry`, `slam` and `full` presets frame by frame.  Both of the JAX
+`odometry`, `slam` and `full` presets frame by frame and chunk by chunk;
+and the host side: the component registry (`utils/registry.py`,
+`models/components.py`, `models/builder.py`), runtime parameters,
+checkpoints, the TUM dataset reader and writer (`io/`, `eval/`) and the
+command-line runner (`run.py`).  Both of the JAX
 package's Pallas kernels run here as hand-written CUDA for Hopper
 (`csrc/`); on CPU tensors their plain PyTorch versions run instead.
 

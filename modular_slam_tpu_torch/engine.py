@@ -17,6 +17,7 @@ device runs chunk N+1.
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from typing import Callable, List, Optional, Tuple
 
@@ -37,6 +38,7 @@ from modular_slam_tpu_torch.ops.detector import detect
 from modular_slam_tpu_torch.ops.pnp import MultinomialSampler, Sampler
 from modular_slam_tpu_torch.types import Features, TrackResult
 from modular_slam_tpu_torch.utils.device import upload
+from modular_slam_tpu_torch.utils.params import ParameterRegistry
 
 Tensor = torch.Tensor
 
@@ -60,20 +62,34 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def make_slam_step(cfg: SlamConfig, device="cuda") -> Callable:
+def _resolve(cfg: SlamConfig, components):
+    """(detect_fn, match_fn, pnp_fn) from an injected Components, or the
+    built-in ops (models/components.py has the contracts)."""
+    if components is not None:
+        return components.detect, components.match, components.pnp
+    return (lambda gray, depth: detect(gray, depth, cfg.detector),
+            None, None)
+
+
+def make_slam_step(cfg: SlamConfig, device="cuda",
+                   components=None) -> Callable:
     """The per-frame engine step for a static config:
     slam_step(arena, state, gray, depth, time, sampler, bootstrap=None)
         -> (arena, state, result, features).
     `bootstrap` says whether the arena is empty (read from it when None);
-    given, the step reads nothing back from the device."""
+    given, the step reads nothing back from the device.  `components`
+    (models/components.Components) injects the detector, matcher and pnp;
+    None uses the built-ins."""
     cam = camera_from_config(cfg.camera, _resolve_device(device))
+    detect_fn, match_fn, pnp_fn = _resolve(cfg, components)
 
     def slam_step(arena: MapArena, state: TrackState, gray: Tensor,
                   depth: Tensor, time: Tensor, sampler: Sampler,
                   bootstrap: Optional[bool] = None):
-        feats = detect(gray, depth, cfg.detector)
-        arena, state, result = track_frame(arena, state, feats, cam, cfg,
-                                           time, sampler, bootstrap)
+        feats = detect_fn(gray, depth)
+        arena, state, result = track_frame(
+            arena, state, feats, cam, cfg, time, sampler, bootstrap,
+            match_fn=match_fn, pnp_fn=pnp_fn)
         return arena, state, result, feats
 
     return slam_step
@@ -94,9 +110,11 @@ def _stack_results(results: List[TrackResult]) -> TrackResult:
                      else stack("relocalized")))
 
 
-def make_slam_scan(cfg: SlamConfig, device="cuda", with_features=False,
+def make_slam_scan(cfg: SlamConfig, device="cuda", components=None,
+                   with_features=False,
                    reloc_vocab: Optional[Tensor] = None) -> Callable:
-    """The chunked step (the JAX `make_slam_scan`):
+    """The chunked step (the JAX `make_slam_scan`), with `components` as
+    in `make_slam_step`:
     fn(arena, state, [db,] grays [C,H,W], depths [C,H,W], times [C],
        sampler, bootstrap=False) -> (arena, state, stacked TrackResult), or
     (arena, state, (stacked TrackResult, [C] per-frame Features)) with
@@ -118,6 +136,7 @@ def make_slam_scan(cfg: SlamConfig, device="cuda", with_features=False,
     frame).  `relocalized` flags the frames it rescued."""
     dev = _resolve_device(device)
     cam = camera_from_config(cfg.camera, dev)
+    detect_fn, match_fn, pnp_fn = _resolve(cfg, components)
     reloc_fn = None
     if reloc_vocab is not None:
         from modular_slam_tpu_torch.loop.relocalizer import make_relocalizer
@@ -128,10 +147,11 @@ def make_slam_scan(cfg: SlamConfig, device="cuda", with_features=False,
         results, feats_all = [], []
         no = torch.zeros((), dtype=torch.bool, device=dev)
         for i in range(grays.shape[0]):
-            feats = detect(grays[i], depths[i], cfg.detector)
+            feats = detect_fn(grays[i], depths[i])
             arena, state, result = track_frame(
                 arena, state, feats, cam, cfg, times[i], sampler,
-                bootstrap=bootstrap and i == 0)
+                bootstrap=bootstrap and i == 0, match_fn=match_fn,
+                pnp_fn=pnp_fn)
             if reloc_fn is not None:
                 relocd = no
                 if not bool(result.tracking_ok):   # the frame's host read
@@ -246,12 +266,22 @@ class SlamSystem:
 
     Whether the map is empty (the tracker's bootstrap) is a host flag, set
     after the first frame; an arena assigned to a fresh system is read
-    once, at its first frame."""
+    once, at its first frame.
+
+    `component_names` picks the detector, matcher and pnp from the
+    registry (models/components.py; kinds left out take the defaults),
+    composed into the step.  `params` (utils/params.ParameterRegistry)
+    holds four tracker and backend thresholds: setting one rebuilds the
+    components and the step around the new config.  Observers registered
+    with `register_frame_observer` hear of every frame after its
+    bookkeeping; on the deferred chunked path, of chunk N's frames once
+    chunk N+1 was launched."""
 
     def __init__(self, cfg: Optional[SlamConfig] = None, device="cuda",
                  seed: int = 0, enable_backend: bool = True,
                  ba_every: int = 1, enable_loop_closure: bool = False,
                  enable_relocalization: bool = False,
+                 component_names: Optional[dict] = None,
                  ba_mode: str = "sync",
                  sampler: Optional[Sampler] = None,
                  defer_chunk_sync: bool = False):
@@ -261,7 +291,16 @@ class SlamSystem:
         self.arena: MapArena = empty_arena(self.cfg.map, self.device)
         self.state: TrackState = initial_state(self.device)
         self.sampler: Sampler = sampler or MultinomialSampler(seed)
-        self._step = make_slam_step(self.cfg, self.device)
+        # registry-selected components; the names are kept so a parameter
+        # change rebuilds the same selection (imported here: the models
+        # package imports this module)
+        from modular_slam_tpu_torch.models.components import (
+            build_components)
+
+        self._component_names = dict(component_names or {})
+        self.components = build_components(self.cfg, self._component_names)
+        self.component_names = self.components.names
+        self._step = make_slam_step(self.cfg, self.device, self.components)
         # None: not known yet, read from the arena at the next frame
         self._has_map: Optional[bool] = None
         self._scan = None                 # the chunked scan, built lazily
@@ -269,6 +308,7 @@ class SlamSystem:
         self.trajectory: List[Tuple[float, Pose]] = []
         self.results: List[TrackResult] = []
         self.last_features: Optional[Features] = None
+        self._frame_observers: List[Callable] = []
         self.enable_backend = enable_backend
         self.ba_every = ba_every
         self.ba_mode = ba_mode  # "sync" (inline) | "async" (offloaded)
@@ -294,6 +334,48 @@ class SlamSystem:
             from modular_slam_tpu_torch.loop.pipeline import LoopPipeline
 
             self._loop = LoopPipeline(self.cfg, self.device)
+        # runtime parameters: key -> (config section, field, cast)
+        self.params = ParameterRegistry()
+        self._param_map = {
+            "min_matched_points": ("tracker", "min_matched_points", int),
+            "better_keyframe_landmarks":
+                ("tracker", "better_keyframe_landmarks", int),
+            "new_keyframe_min_landmarks":
+                ("tracker", "new_keyframe_min_inliers", int),
+            "lba_max_num_iterations": ("backend", "max_iterations", int),
+        }
+        t = self.cfg.tracker
+        self.params.register_number("min_matched_points",
+                                    t.min_matched_points, 0, 1000)
+        self.params.register_number("better_keyframe_landmarks",
+                                    t.better_keyframe_landmarks, 0, 2000)
+        self.params.register_number("new_keyframe_min_landmarks",
+                                    t.new_keyframe_min_inliers, 0, 2000)
+        self.params.register_number("lba_max_num_iterations",
+                                    self.cfg.backend.max_iterations, 1, 100)
+        self.params.subscribe_on_change(self._on_param_change)
+
+    def _on_param_change(self, key: str, value) -> None:
+        """Live-tune a config threshold: rebuild the components and the
+        step around the new config, drop the scan (rebuilt at the next
+        chunk) and close the backend (rebuilt at the next keyframe)."""
+        from modular_slam_tpu_torch.models.components import (
+            build_components)
+
+        section, field, cast = self._param_map[key]
+        sub = dataclasses.replace(getattr(self.cfg, section),
+                                  **{field: cast(value)})
+        self.cfg = dataclasses.replace(self.cfg, **{section: sub})
+        self.components = build_components(self.cfg, self._component_names)
+        self._step = make_slam_step(self.cfg, self.device, self.components)
+        self._scan = None
+        if self._backend is not None:
+            self._backend.close()
+            self._backend = None
+
+    def register_frame_observer(self, fn: Callable) -> None:
+        """fn(timestamp, pose, result), called after each processed frame."""
+        self._frame_observers.append(fn)
 
     def _bootstrap_next(self) -> bool:
         """Whether the next frame bootstraps the map: read from the arena
@@ -341,6 +423,8 @@ class SlamSystem:
             if ok:
                 self.state = new_state
                 self.n_relocalizations += 1
+        for fn in self._frame_observers:
+            fn(timestamp, pose, result)
         if tracking_ok:
             return SlamResult.SUCCESS
         return SlamResult.NO_CONSTRAINTS
@@ -502,6 +586,7 @@ class SlamSystem:
                      if self.enable_relocalization and self._loop is not None
                      else None)
             self._scan = make_slam_scan(self.cfg, self.device,
+                                        self.components,
                                         with_features=self._loop is not None,
                                         reloc_vocab=vocab)
             self._scan_takes_db = vocab is not None
@@ -599,6 +684,8 @@ class SlamSystem:
                 tracking_ok=ok[i], new_keyframe=new_kf[i],
                 kf_slot=ints[i, 0],
                 relocalized=None if relocd is None else relocd[i]))
+            for fn in self._frame_observers:
+                fn(times_host[i], pose, self.results[-1])
             codes.append(SlamResult.SUCCESS if ok_np[i]
                          else SlamResult.NO_CONSTRAINTS)
 

@@ -98,18 +98,26 @@ def _bootstrap(arena: MapArena, state: TrackState, feats: Features,
 
 def _track(arena: MapArena, state: TrackState, feats: Features, cam: Camera,
            cfg: SlamConfig, time: Tensor, sampler: Sampler,
+           match_fn=None, pnp_fn=None,
            ) -> Tuple[MapArena, TrackState, TrackResult]:
     kps = feats.keypoints
     desc = feats.descriptors.unpacked
     tcfg = cfg.tracker
+
+    # injected components (models/components.py); None -> the built-ins
+    if match_fn is None:
+        match_fn = lambda q, qv, t, tv: match_descriptors(  # noqa: E731
+            q, qv, t, tv, cfg.matcher)
+    if pnp_fn is None:
+        pnp_fn = lambda pw, uv, pc, v, init, s: ransac_pnp(  # noqa: E731
+            cam, pw, uv, pc, v, init, s, cfg.pnp)
 
     # --- candidate landmarks: 2-hop covisibility of the reference KF ------
     kf_mask = khop_keyframes(arena, state.ref_kf, tcfg.covis_depth_tracking)
     lm_mask = visible_landmarks(arena, kf_mask)
 
     # --- 2-NN ratio matching against landmark descriptors (kernel K2) ----
-    matches = match_descriptors(desc, kps.valid, arena.lm_desc, lm_mask,
-                                cfg.matcher)
+    matches = match_fn(desc, kps.valid, arena.lm_desc, lm_mask)
     matches = dedupe_matches(matches, arena.max_landmarks)
 
     has_depth = kps.depth > 0.0
@@ -119,8 +127,7 @@ def _track(arena: MapArena, state: TrackState, feats: Features, cam: Camera,
     # --- PnP ---------------------------------------------------------------
     pts_world = arena.lm_pos[matches.lm_slot.long()]
     pts_cam = backproject(cam, kps.uv, kps.depth)
-    pnp = ransac_pnp(cam, pts_world, kps.uv, pts_cam, m_ok, state.pose,
-                     sampler, cfg.pnp)
+    pnp = pnp_fn(pts_world, kps.uv, pts_cam, m_ok, state.pose, sampler)
 
     enough = n_matches >= tcfg.min_matched_points
     ok = enough & pnp.ok
@@ -184,15 +191,19 @@ def _track(arena: MapArena, state: TrackState, feats: Features, cam: Camera,
 
 def track_frame(arena: MapArena, state: TrackState, feats: Features,
                 cam: Camera, cfg: SlamConfig, time: Tensor, sampler: Sampler,
-                bootstrap: Optional[bool] = None,
+                bootstrap: Optional[bool] = None, match_fn=None, pnp_fn=None,
                 ) -> Tuple[MapArena, TrackState, TrackResult]:
     """One frontend step: bootstrap on the first frame, track afterwards.
     `sampler` draws the RANSAC triplets (ops/pnp.py) and is called once
     per tracked frame.  `bootstrap` says whether the arena is empty (the
     JAX step's `arena.n_kf == 0`); when None it is read from the device,
-    and otherwise the step reads nothing back."""
+    and otherwise the step reads nothing back.
+
+    `match_fn` / `pnp_fn` are injected components (models/components.py
+    has the contracts); None uses the built-ins."""
     if bootstrap is None:
         bootstrap = int(arena.n_kf) == 0
     if bootstrap:
         return _bootstrap(arena, state, feats, cam, cfg, time)
-    return _track(arena, state, feats, cam, cfg, time, sampler)
+    return _track(arena, state, feats, cam, cfg, time, sampler,
+                  match_fn=match_fn, pnp_fn=pnp_fn)

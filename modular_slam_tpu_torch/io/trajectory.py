@@ -1,5 +1,7 @@
-"""Trajectory export in TUM format (counterpart of the TUM writer in
-modular_slam_tpu/io/trajectory.py): `timestamp x y z qx qy qz qw`."""
+"""Trajectory export in TUM and KITTI formats, and the TUM reader
+(counterpart of modular_slam_tpu/io/trajectory.py):
+- TUM: `timestamp x y z qx qy qz qw` per line;
+- KITTI: the row-major 3x4 [R|t] per line."""
 
 from __future__ import annotations
 
@@ -7,7 +9,10 @@ from typing import IO, Optional
 
 import numpy as np
 
-from modular_slam_tpu_torch.geometry.se3 import Pose
+import torch
+
+from modular_slam_tpu_torch.geometry.se3 import Pose, quat_to_matrix
+from modular_slam_tpu_torch.io.tum import _read_trajectory_file
 
 
 def _np(x) -> np.ndarray:
@@ -38,6 +43,35 @@ class TumTrajectoryWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class KittiTrajectoryWriter:
+    def __init__(self, path: str):
+        self.path = path
+        self._f: Optional[IO] = open(path, "w")
+
+    def write(self, timestamp: float, pose: Pose) -> None:
+        # the rotation in float32, as the JAX writer computes it
+        q = torch.as_tensor(_np(pose.q), dtype=torch.float32)
+        R = quat_to_matrix(q).numpy().astype(np.float64)
+        m = np.concatenate([R, _np(pose.t)[:, None]], axis=1).reshape(-1)
+        self._f.write(" ".join(f"{v:.9f}" for v in m) + "\n")
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def read_tum_trajectory(path: str) -> np.ndarray:
+    """Read a TUM trajectory file -> [N, 8] (t x y z qx qy qz qw)."""
+    return _read_trajectory_file(path)
 
 
 def trajectory_array(trajectory) -> np.ndarray:

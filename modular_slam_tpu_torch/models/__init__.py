@@ -5,3 +5,4 @@ from modular_slam_tpu_torch.models.pipelines import (  # noqa: F401
     odometry_pipeline,
     slam_pipeline,
 )
+from modular_slam_tpu_torch.models.builder import SlamBuilder  # noqa: F401

@@ -2,8 +2,10 @@
 fails, import modular_slam_tpu_torch and run three frames each of the
 odometry preset (frame by frame and through the chunked path), the slam
 preset (local BA) and the full preset (loop closure, relocalization, and
-map compaction in a 2-keyframe pool) on the CPU; `chip_smoke.py` imports
-too, and without a card exits non-zero."""
+map compaction in a 2-keyframe pool) on the CPU; run the command-line
+runner on data/sample, saving a checkpoint and resuming from it, and
+write a dataset; `chip_smoke.py` imports too, and without a card exits
+non-zero."""
 
 import os
 import subprocess
@@ -41,6 +43,25 @@ SCRIPT = textwrap.dedent("""
     assert full.n_compactions >= 1 and full._loop.db.valid.any()
     for m in ("backend.ba", "loop.pipeline", "backend.posegraph",
               "map.lifecycle"):
+        assert "modular_slam_tpu_torch." + m in sys.modules, m
+    import contextlib, io, json, os, tempfile
+    from modular_slam_tpu_torch import run
+    from modular_slam_tpu_torch.eval.make_dataset import write_dataset
+    tmp = tempfile.mkdtemp()
+    ck = os.path.join(tmp, "ck.npz")
+    reports = io.StringIO()
+    with contextlib.redirect_stdout(reports):
+        assert run.main(["--dataset", "data/sample", "--cpu", "--out",
+                         os.path.join(tmp, "traj.txt"), "--save-checkpoint",
+                         ck]) == 0
+        assert run.main(["--dataset", "data/sample", "--cpu", "--chunk",
+                         "1", "--load-checkpoint", ck, "--max-frames",
+                         "2"]) == 0
+    first, resumed = map(json.loads, reports.getvalue().splitlines())
+    assert first["tracked_ok"] == 16 and resumed["frames"] == 18
+    assert write_dataset(os.path.join(tmp, "ds"), frames=2, laps=1,
+                         width=32, height=24)["frames"] == 2
+    for m in ("run", "utils.checkpoint", "io.native", "viz.png"):
         assert "modular_slam_tpu_torch." + m in sys.modules, m
     import torch
     import chip_smoke
