@@ -153,8 +153,8 @@ def _track(arena: MapArena, state: TrackState, feats: Features, cam: Camera,
     # scatter with a sentinel row L, dropped by the slice
     slots = torch.where(pnp.inliers, matches.lm_slot.long(),
                         torch.full_like(matches.lm_slot.long(), L))
-    inlier_lm = torch.zeros(L + 1, dtype=torch.float32, device=slots.device)
-    inlier_lm.index_fill_(0, slots, 1.0)
+    inlier_lm = torch.zeros(L + 1, dtype=torch.float32,
+                            device=slots.device).index_fill(0, slots, 1.0)
     votes = (arena.inc.to(torch.float32) @ inlier_lm[:L]).to(torch.int32)
     votes = torch.where(hop5 & arena.kf_valid, votes,
                         torch.full_like(votes, -1))

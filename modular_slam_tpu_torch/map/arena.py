@@ -10,7 +10,10 @@ counterpart, and selecting the kept entries (`torch.nonzero`) waits for
 the device, so every write here is a scatter of the whole batch in which
 a dropped entry writes back a value its destination already holds or is
 given (`_append`, `_set_rows`): no host sync, and no two entries
-write different values to one place.  Every `add_*` takes an optional 0-d
+write different values to one place.  The writes are `index_put_` and
+out-of-place `index_fill`, which `torch.func.vmap` batches
+(parallel/dp.py runs the tracker over a batch of arenas); it has no
+batching rule for `index_copy_`.  Every `add_*` takes an optional 0-d
 bool `enable` that gates its rows and its counter increments: the masked
 form of the JAX tracker's `lax.cond` keyframe branch.
 
@@ -109,8 +112,8 @@ def _append(base: Tensor, keep: Tensor, n_rows: int, *writes) -> None:
         n_rows)
     for dst, src in writes:
         mask = keep.reshape(-1, *([1] * (src.dim() - 1)))
-        dst.index_copy_(0, rows, torch.where(mask, src.to(dst.dtype),
-                                             dst.index_select(0, rows)))
+        dst.index_put_((rows,), torch.where(mask, src.to(dst.dtype),
+                                            dst.index_select(0, rows)))
 
 
 def _set_rows(dst: Tensor, rows: Tensor, src: Tensor, keep: Tensor) -> None:
@@ -127,8 +130,8 @@ def _set_rows(dst: Tensor, rows: Tensor, src: Tensor, keep: Tensor) -> None:
     val0 = torch.where(any_kept, src.index_select(0, first),
                        dst.index_select(0, zero))
     mask = keep.reshape(-1, *([1] * (src.dim() - 1)))
-    dst.index_copy_(0, torch.where(keep, rows, row0),
-                    torch.where(mask, src, val0))
+    dst.index_put_((torch.where(keep, rows, row0),),
+                   torch.where(mask, src, val0))
 
 
 def _enabled(mask: Tensor, enable) -> Tensor:
@@ -189,10 +192,10 @@ def add_observations(arena: MapArena, kf_slot: Tensor, lm_slots: Tensor,
     # dropped keyframe has none: row K - 1 is written back unchanged)
     lm_idx = lm_slots.to(torch.int64)
     kf_row = torch.clamp(kf_slot.to(torch.int64), max=K - 1).reshape(1)
-    hit = torch.zeros(L + 1, dtype=torch.bool, device=ok.device)
-    hit.index_fill_(0, torch.where(ok, lm_idx, L), True)
-    arena.inc.index_copy_(0, kf_row,
-                          arena.inc.index_select(0, kf_row) | hit[None, :L])
+    hit = torch.zeros(L + 1, dtype=torch.bool, device=ok.device).index_fill(
+        0, torch.where(ok, lm_idx, L), True)
+    arena.inc.index_put_((kf_row,),
+                         arena.inc.index_select(0, kf_row) | hit[None, :L])
     # the descriptor refresh: ok slots are distinct, the others may repeat
     # them
     _set_rows(arena.lm_desc, torch.clamp(lm_idx, max=L - 1), descs, ok)

@@ -7,7 +7,9 @@ launch the hand-written kernel `csrc/fast_score.cu` (kernel K1, which
 replaces the Pallas kernel `fast_pallas.py::_fast_kernel`), once for all
 the images; on CPU tensors they run `fast_score_plain`, the roll-ladder
 formulation of the JAX package, which is also the kernel's oracle.  There
-is no fallback between the two.
+is no fallback between the two.  The launch is a `torch.library.custom_op`
+with a vmap rule: `torch.func.vmap` of the detector (parallel/dp.py)
+launches K1 once for a batch of sequences.
 
   d[k]   = I(p + circle[k]) - I(p)                  (16 rolled images)
   m9[k]  = min(d[k], ..., d[k+8])  circular
@@ -80,23 +82,22 @@ def _check_level(img: Tensor) -> None:
         raise ValueError("fast_score: contiguous input expected")
 
 
-def fast_score_levels_cuda(levels: Sequence[Tensor]) -> List[Tensor]:
-    """Kernel K1: the score maps of every level in one launch.  Each
-    level is [H, W] or [B, H, W] float32 CUDA, contiguous, with one B for
-    all; at most FAST_MAX_LEVELS levels."""
-    if not 1 <= len(levels) <= FAST_MAX_LEVELS:
-        raise ValueError(f"fast_score: 1..{FAST_MAX_LEVELS} levels, got "
-                         f"{len(levels)}")
-    for img in levels:
-        _check_level(img)
-    xs = [img if img.dim() == 3 else img[None] for img in levels]
-    if len({x.shape[0] for x in xs}) != 1 or \
-            len({x.device for x in xs}) != 1:
+@torch.library.custom_op("mslam::fast_score_levels", mutates_args=(),
+                         device_types="cuda")
+def _fast_score_levels_op(levels: List[Tensor]) -> List[Tensor]:
+    """Kernel K1 as an operator, so that `torch.func.vmap` batches it
+    (`_fast_vmap`: one launch for the batch) where a ctypes launch would
+    need `data_ptr()` of a batched tensor.  Levels [H, W] or [B, H, W]
+    with one B (1 for [H, W]) and one device; a [H, W] level and its
+    [1, H, W] form have one layout, so the outputs are allocated in the
+    inputs' shapes."""
+    B = {img.shape[0] if img.dim() == 3 else 1 for img in levels}
+    if len(B) != 1 or len({img.device for img in levels}) != 1:
         raise ValueError("fast_score: levels differ in batch size or device")
-    outs = [torch.empty_like(x) for x in xs]
-    work = [(x, o) for x, o in zip(xs, outs) if x.numel()]
+    outs = [torch.empty_like(img) for img in levels]
+    work = [(x, o) for x, o in zip(levels, outs) if x.numel()]
     if work:
-        shapes = [tuple(x.shape[1:]) for x, _ in work]
+        shapes = [tuple(x.shape[-2:]) for x, _ in work]
         n = len(work)
         FAST_SCORE.launch(
             (ctypes.c_void_p * n)(*(x.data_ptr() for x, _ in work)),
@@ -104,9 +105,42 @@ def fast_score_levels_cuda(levels: Sequence[Tensor]) -> List[Tensor]:
             (ctypes.c_int * n)(*(h for h, _ in shapes)),
             (ctypes.c_int * n)(*(w for _, w in shapes)),
             (ctypes.c_int * (n + 1))(*fast_tile_table(shapes)),
-            n, xs[0].shape[0],
-            torch.cuda.current_stream(xs[0].device).cuda_stream)
-    return [o if img.dim() == 3 else o[0] for img, o in zip(levels, outs)]
+            n, B.pop(), torch.cuda.current_stream(
+                levels[0].device).cuda_stream)
+    return outs
+
+
+@_fast_score_levels_op.register_fake
+def _(levels):
+    return [torch.empty_like(img) for img in levels]
+
+
+def _fast_vmap(info, in_dims, levels):
+    """vmap rule of K1: the vmapped batch to dim 0, every level
+    flattened to [N, H, W] (N the vmapped batch times any batch of the
+    level itself), one launch, and the batch restored."""
+    xs = [x.movedim(d, 0) if d is not None
+          else x.expand(info.batch_size, *x.shape)
+          for x, d in zip(levels, in_dims[0])]
+    outs = _fast_score_levels_op(
+        [x.reshape(-1, *x.shape[-2:]).contiguous() for x in xs])
+    return [o.reshape(x.shape) for x, o in zip(xs, outs)], [0] * len(xs)
+
+
+torch.library.register_vmap(_fast_score_levels_op, _fast_vmap)
+
+
+def fast_score_levels_cuda(levels: Sequence[Tensor]) -> List[Tensor]:
+    """Kernel K1: the score maps of every level in one launch.  Each
+    level is [H, W] or [B, H, W] float32 CUDA, contiguous, with one B for
+    all; at most FAST_MAX_LEVELS levels.  Under `torch.func.vmap` the
+    vmapped batch joins B: still one launch."""
+    if not 1 <= len(levels) <= FAST_MAX_LEVELS:
+        raise ValueError(f"fast_score: 1..{FAST_MAX_LEVELS} levels, got "
+                         f"{len(levels)}")
+    for img in levels:
+        _check_level(img)
+    return _fast_score_levels_op(list(levels))
 
 
 def fast_score_levels(levels: Sequence[Tensor]) -> List[Tensor]:

@@ -13,12 +13,16 @@ match_pallas.py:182-196).  On CPU tensors it runs
 which is also the kernels' oracle; `hamming_2nn_splits_plain`,
 `merge_tiles` and `_ratio_test` are the plain versions of the two kernels
 one by one.  There is no fallback between the two paths.
+
+Each kernel's launch is a `torch.library.custom_op` with a vmap rule, so
+that `torch.func.vmap` of the tracker (parallel/dp.py) launches K2 and
+the merge once for a batch of sequences.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -145,15 +149,8 @@ def _batch(x: Tensor, rank: int) -> int:
     return x.shape[0] if x.dim() == rank + 1 else 1
 
 
-def _unbatched(query_pm1: Tensor, train_pm1: Tensor,
-               train_valid: Tensor) -> bool:
-    return query_pm1.dim() == 2 and train_pm1.dim() == 2 \
-        and train_valid.dim() == 1
-
-
-def _launch_splits(query_pm1: Tensor, train_pm1: Tensor,
-                   train_valid: Tensor):
-    """Kernel K2 -> batched triples [B, S, Nq] and B."""
+def _check_splits(query_pm1: Tensor, train_pm1: Tensor,
+                  train_valid: Tensor) -> None:
     _check_cuda("query", query_pm1, torch.int8)
     _check_cuda("train", train_pm1, torch.int8)
     _check_cuda("train_valid", train_valid, torch.bool)
@@ -165,6 +162,37 @@ def _launch_splits(query_pm1: Tensor, train_pm1: Tensor,
             or train_valid.shape[-1] != train_pm1.shape[-2]):
         raise ValueError("hamming_2nn: train_valid must be [L] or [B, L] "
                          "over the train rows")
+    if train_pm1.shape[-2] < 1:
+        raise ValueError("hamming_2nn: at least one landmark row expected")
+
+
+def _splits_plan(query_pm1: Tensor, train_pm1: Tensor,
+                 train_valid: Tensor) -> Tuple[int, int, Tuple[int, ...]]:
+    """(B, chunks per split, shape of each split triple): [S, Nq] for
+    unbatched operands, [B, S, Nq] when one is batched."""
+    Bq, Bt, Bv = (_batch(query_pm1, 2), _batch(train_pm1, 2),
+                  _batch(train_valid, 1))
+    if len({Bq, Bt, Bv} - {1}) > 1:
+        raise ValueError(f"hamming_2nn: batch sizes {Bq}, {Bt} and {Bv}")
+    B = max(Bq, Bt, Bv)
+    Nq = query_pm1.shape[-2]
+    cps, S = hamming_split_plan(train_pm1.shape[-2],
+                                hamming_n_splits(Nq, B, query_pm1.device))
+    if query_pm1.dim() == 2 and train_pm1.dim() == 2 \
+            and train_valid.dim() == 1:
+        return B, cps, (S, Nq)
+    return B, cps, (B, S, Nq)
+
+
+@torch.library.custom_op("mslam::hamming_2nn_splits", mutates_args=(),
+                         device_types="cuda")
+def _hamming_2nn_splits_op(query_pm1: Tensor, train_pm1: Tensor,
+                           train_valid: Tensor
+                           ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Kernel K2 as an operator, so that `torch.func.vmap` batches it
+    (`_splits_vmap`: one launch for the batch).  Operands as
+    `hamming_2nn_splits`, checked; the triples are [S, Nq] for unbatched
+    operands and [B, S, Nq] otherwise."""
     devs = {query_pm1.device, train_pm1.device, train_valid.device}
     if len(devs) != 1:
         raise ValueError(f"hamming_2nn: operands on several devices {devs}")
@@ -172,28 +200,100 @@ def _launch_splits(query_pm1: Tensor, train_pm1: Tensor,
         if x.data_ptr() % 16:
             raise ValueError("hamming_2nn: descriptors must be 16-byte "
                              "aligned")
-    Bq, Bt, Bv = (_batch(query_pm1, 2), _batch(train_pm1, 2),
-                  _batch(train_valid, 1))
-    if len({Bq, Bt, Bv} - {1}) > 1:
-        raise ValueError(f"hamming_2nn: batch sizes {Bq}, {Bt} and {Bv}")
-    B = max(Bq, Bt, Bv)
-    Nq = query_pm1.shape[-2]
-    L = train_pm1.shape[-2]
-    if L < 1:
-        raise ValueError("hamming_2nn: at least one landmark row expected")
+    B, cps, shape = _splits_plan(query_pm1, train_pm1, train_valid)
+    S, Nq, L = shape[-2], shape[-1], train_pm1.shape[-2]
     dev = query_pm1.device
-    cps, S = hamming_split_plan(L, hamming_n_splits(Nq, B, dev))
-    best = torch.empty((B, S, Nq), dtype=torch.float32, device=dev)
-    idx = torch.empty((B, S, Nq), dtype=torch.int32, device=dev)
-    second = torch.empty((B, S, Nq), dtype=torch.float32, device=dev)
+    best = torch.empty(shape, dtype=torch.float32, device=dev)
+    idx = torch.empty(shape, dtype=torch.int32, device=dev)
+    second = torch.empty(shape, dtype=torch.float32, device=dev)
     if Nq and B:
         HAMMING_2NN.launch(
             query_pm1.data_ptr(), train_pm1.data_ptr(),
             train_valid.data_ptr(), best.data_ptr(), idx.data_ptr(),
             second.data_ptr(), B, Nq, L, S, cps,
-            Nq * _NBITS if Bq > 1 else 0, L * _NBITS if Bt > 1 else 0,
-            L if Bv > 1 else 0, torch.cuda.current_stream(dev).cuda_stream)
-    return best, idx, second, B
+            Nq * _NBITS if query_pm1.dim() == 3 else 0,
+            L * _NBITS if train_pm1.dim() == 3 else 0,
+            L if train_valid.dim() == 2 else 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return best, idx, second
+
+
+@_hamming_2nn_splits_op.register_fake
+def _(query_pm1, train_pm1, train_valid):
+    shape = _splits_plan(query_pm1, train_pm1, train_valid)[2]
+    f32 = query_pm1.new_empty(shape, dtype=torch.float32)
+    return f32, query_pm1.new_empty(shape, dtype=torch.int32), \
+        torch.empty_like(f32)
+
+
+def _to_front(x: Tensor, dim: Optional[int]) -> Tensor:
+    return x if dim is None else x.movedim(dim, 0).contiguous()
+
+
+def _splits_vmap(info, in_dims, query_pm1, train_pm1, train_valid):
+    """vmap rule of K2: the vmapped operands with their batch at dim 0,
+    an operand not vmapped shared by the batch (the kernel's zero batch
+    stride), one launch.  Operands batched already besides the vmap
+    are not taken."""
+    args = [_to_front(x, d) for x, d in zip(
+        (query_pm1, train_pm1, train_valid), in_dims)]
+    for x, d, rank in zip(args, in_dims, (2, 2, 1)):
+        if x.dim() != rank + (d is not None):
+            raise ValueError("hamming_2nn: a batched operand under vmap")
+    return _hamming_2nn_splits_op(*args), (0, 0, 0)
+
+
+torch.library.register_vmap(_hamming_2nn_splits_op, _splits_vmap)
+
+
+@torch.library.custom_op("mslam::hamming_merge", mutates_args=(),
+                         device_types="cuda")
+def _hamming_merge_op(best: Tensor, idx: Tensor, second: Tensor,
+                      query_valid: Tensor, max_hamming: float,
+                      lowe_ratio: float) -> Tuple[Tensor, Tensor, Tensor]:
+    """The merge kernel as an operator (`_merge_vmap` batches it): split
+    triples [S, Nq] or [B, S, Nq] and query_valid [Nq] (shared by the
+    batch) or [B, Nq] -> lm_slot, distance, valid, [Nq] or [B, Nq]."""
+    dev = best.device
+    S, Nq = best.shape[-2:]
+    B = _batch(best, 2)
+    shape = best.shape[:-2] + (Nq,)
+    lm_slot = torch.empty(shape, dtype=torch.int32, device=dev)
+    distance = torch.empty(shape, dtype=torch.float32, device=dev)
+    valid = torch.empty(shape, dtype=torch.bool, device=dev)
+    if Nq and B:
+        HAMMING_MERGE.launch(
+            best.data_ptr(), idx.data_ptr(), second.data_ptr(),
+            query_valid.data_ptr(), lm_slot.data_ptr(), distance.data_ptr(),
+            valid.data_ptr(), B, S, Nq,
+            Nq if query_valid.dim() == 2 else 0, max_hamming, lowe_ratio,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return lm_slot, distance, valid
+
+
+@_hamming_merge_op.register_fake
+def _(best, idx, second, query_valid, max_hamming, lowe_ratio):
+    shape = best.shape[:-2] + best.shape[-1:]
+    return (best.new_empty(shape, dtype=torch.int32),
+            best.new_empty(shape), best.new_empty(shape, dtype=torch.bool))
+
+
+def _merge_vmap(info, in_dims, best, idx, second, query_valid, max_hamming,
+                lowe_ratio):
+    """vmap rule of the merge: triples with their batch at dim 0 (a
+    triple not vmapped is expanded to the batch), query_valid shared
+    when not vmapped, one launch."""
+    B = info.batch_size
+    trip = [_to_front(x, d) if d is not None
+            else x.expand(B, *x.shape).contiguous()
+            for x, d in zip((best, idx, second), in_dims[:3])]
+    qv = _to_front(query_valid, in_dims[3])
+    if trip[0].dim() != 3 or qv.dim() != 1 + (in_dims[3] is not None):
+        raise ValueError("hamming_merge: a batched operand under vmap")
+    return _hamming_merge_op(*trip, qv, max_hamming, lowe_ratio), (0, 0, 0)
+
+
+torch.library.register_vmap(_hamming_merge_op, _merge_vmap)
 
 
 def hamming_2nn_splits(query_pm1: Tensor, train_pm1: Tensor,
@@ -207,37 +307,26 @@ def hamming_2nn_splits(query_pm1: Tensor, train_pm1: Tensor,
     keys dot products of at most 256 in magnitude); train_valid [L] or
     [B, L] bool.  An unbatched operand is shared by every batch element:
     B masks over one set of rows compare the same queries with the same
-    rows under B masks.  Any Nq and any L >= 1."""
-    best, idx, second, _ = _launch_splits(query_pm1, train_pm1, train_valid)
-    if _unbatched(query_pm1, train_pm1, train_valid):
-        return best[0], idx[0], second[0]
-    return best, idx, second
+    rows under B masks.  Any Nq and any L >= 1.  Under `torch.func.vmap`
+    the vmapped batch is B (then S follows the vmapped B): one launch."""
+    _check_splits(query_pm1, train_pm1, train_valid)
+    return _hamming_2nn_splits_op(query_pm1, train_pm1, train_valid)
 
 
 def match_descriptors_cuda(query_pm1: Tensor, query_valid: Tensor,
                            train_pm1: Tensor, train_valid: Tensor,
                            cfg: MatcherConfig) -> Matches:
     """Kernels K2 and the merge: two launches, `Matches` written on the
-    card.  Shapes as `hamming_2nn_splits`; query_valid [Nq] or [B, Nq]
-    bool, like the query rows."""
+    card, for a batch under `torch.func.vmap` too.  Shapes as
+    `hamming_2nn_splits`; query_valid [Nq] or [B, Nq] bool, like the
+    query rows."""
     _check_cuda("query_valid", query_valid, torch.bool)
     if query_valid.shape != query_pm1.shape[:-1]:
         raise ValueError("hamming_2nn: query_valid must match query rows")
-    best, idx, second, B = _launch_splits(query_pm1, train_pm1, train_valid)
-    S, Nq = best.shape[1], best.shape[2]
-    dev = best.device
-    lm_slot = torch.empty((B, Nq), dtype=torch.int32, device=dev)
-    distance = torch.empty((B, Nq), dtype=torch.float32, device=dev)
-    valid = torch.empty((B, Nq), dtype=torch.bool, device=dev)
-    if Nq and B:
-        HAMMING_MERGE.launch(
-            best.data_ptr(), idx.data_ptr(), second.data_ptr(),
-            query_valid.data_ptr(), lm_slot.data_ptr(), distance.data_ptr(),
-            valid.data_ptr(), B, S, Nq,
-            Nq if _batch(query_pm1, 2) > 1 else 0, float(cfg.max_hamming),
-            float(cfg.lowe_ratio), torch.cuda.current_stream(dev).cuda_stream)
-    if _unbatched(query_pm1, train_pm1, train_valid):
-        lm_slot, distance, valid = lm_slot[0], distance[0], valid[0]
+    best, idx, second = hamming_2nn_splits(query_pm1, train_pm1, train_valid)
+    lm_slot, distance, valid = _hamming_merge_op(
+        best, idx, second, query_valid, float(cfg.max_hamming),
+        float(cfg.lowe_ratio))
     return Matches(lm_slot=lm_slot, distance=distance, valid=valid)
 
 

@@ -44,28 +44,54 @@ class MultinomialSampler:
     the valid rows (uniform over all rows when none is valid: the
     probabilities of pnp.py:211-212).  The uniforms come from an explicit
     CPU generator and are mapped to rows on the rows' device by an exact
-    integer inverse CDF (the j-th valid row for j = floor(u * n_valid)), so
-    a seed gives the same triplets for a CPU and a CUDA run of the same
-    frames, and nothing is read back from the card: the uniforms go to it
-    from pinned memory without waiting.  Duplicate indices within a
-    triplet are degenerate and score out, as in the JAX package."""
+    integer inverse CDF (`uniform_rows`), so a seed gives the same
+    triplets for a CPU and a CUDA run of the same frames, and nothing is
+    read back from the card: the uniforms go to it from pinned memory
+    without waiting.  Duplicate indices within a triplet are degenerate
+    and score out, as in the JAX package.
+
+    `draw_batch` draws for B sequences at once, each from its own
+    sampler, and gives sequence b what that sampler alone would give."""
 
     def __init__(self, seed: int = 0):
         self.generator = torch.Generator(device="cpu")
         self.generator.manual_seed(seed)
 
+    def uniforms(self, n_hyp: int) -> Tensor:
+        """The next draw's uniforms, [n_hyp, 3] float64 on the host."""
+        return torch.rand((n_hyp, 3), generator=self.generator,
+                          dtype=torch.float64)
+
     def __call__(self, valid: Tensor, n_hyp: int) -> Tensor:
-        u = torch.rand((n_hyp, 3), generator=self.generator,
-                       dtype=torch.float64)
-        if valid.is_cuda:
-            u = u.pin_memory().to(valid.device, non_blocking=True)
-        N = valid.shape[0]
-        cdf = torch.cumsum(valid.to(torch.int64), 0)
-        n = cdf[-1]
-        none = n == 0
-        cdf = torch.where(none, torch.arange(1, N + 1, device=cdf.device), cdf)
-        j = torch.floor(u * torch.where(none, N, n)).to(torch.int64)
-        return torch.searchsorted(cdf, j, right=True).clamp(max=N - 1)
+        return uniform_rows(_to_device(self.uniforms(n_hyp), valid.device),
+                            valid)
+
+    @staticmethod
+    def draw_batch(samplers, valid: Tensor, n_hyp: int) -> Tensor:
+        """valid [B, N] -> [B, n_hyp, 3]: samplers[b] draws for row b; one
+        upload and one mapping for the batch."""
+        u = torch.stack([s.uniforms(n_hyp) for s in samplers])
+        return uniform_rows(_to_device(u, valid.device), valid)
+
+
+def _to_device(u: Tensor, device) -> Tensor:
+    if torch.device(device).type == "cuda":
+        return u.pin_memory().to(device, non_blocking=True)
+    return u
+
+
+def uniform_rows(u: Tensor, valid: Tensor) -> Tensor:
+    """Uniforms u [..., H, 3] in [0, 1) -> row indices [..., H, 3] over
+    valid [..., N]: the j-th valid row for j = floor(u * n_valid) (the
+    j-th row when none is valid)."""
+    N = valid.shape[-1]
+    cdf = torch.cumsum(valid.to(torch.int64), -1)
+    n = cdf[..., -1:]
+    none = n == 0
+    cdf = torch.where(none, torch.arange(1, N + 1, device=cdf.device), cdf)
+    j = torch.floor(u * torch.where(none, N, n)[..., None]).to(torch.int64)
+    rows = torch.searchsorted(cdf, j.reshape(*j.shape[:-2], -1), right=True)
+    return rows.reshape(j.shape).clamp(max=N - 1)
 
 
 def _triad(p1: Tensor, p2: Tensor, p3: Tensor) -> Tensor:

@@ -4,8 +4,8 @@ odometry preset (frame by frame and through the chunked path), the slam
 preset (local BA) and the full preset (loop closure, relocalization, and
 map compaction in a 2-keyframe pool) on the CPU; run the command-line
 runner on data/sample, saving a checkpoint and resuming from it, and
-write a dataset; `chip_smoke.py` imports too, and without a card exits
-non-zero."""
+write a dataset; track two sequences batched and evaluate data/sample;
+`chip_smoke.py` imports too, and without a card exits non-zero."""
 
 import os
 import subprocess
@@ -62,6 +62,19 @@ SCRIPT = textwrap.dedent("""
     assert write_dataset(os.path.join(tmp, "ds"), frames=2, laps=1,
                          width=32, height=24)["frames"] == 2
     for m in ("run", "utils.checkpoint", "io.native", "viz.png"):
+        assert "modular_slam_tpu_torch." + m in sys.modules, m
+    from modular_slam_tpu_torch.eval import evaluate
+    from modular_slam_tpu_torch.parallel.multiseq import MultiSequenceRunner
+    runner = MultiSequenceRunner(cfg, batch=2, chunk=2, device="cpu")
+    runner.run([list(gen.sequence(poses))] * 2)
+    assert runner.tracking_ok == [[True] * 3] * 2, runner.tracking_ok
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert evaluate.main(["--datasets", "data/sample", "--out",
+                              os.path.join(tmp, "eval"), "--pipeline",
+                              "odometry", "--max-frames", "2",
+                              "--cpu"]) == 0
+    for m in ("eval.evaluate", "eval.report", "parallel.mesh",
+              "parallel.dp", "parallel.multiseq"):
         assert "modular_slam_tpu_torch." + m in sys.modules, m
     import torch
     import chip_smoke
