@@ -101,8 +101,8 @@ Phases, each printing one JSON line:
               --pipeline full --ate --save-checkpoint` with the flagship's
               overrides runs as a subprocess (chunks of 16, wire format,
               deferred): 96/96 frames tracked, ATE below CLI_ATE_BOUND_M
-              (printed beside the JAX runner's figure on the same
-              dataset, CLI_JAX_ATE_M);
+              (the JAX runner's worst over seeds 0-3 on the same dataset
+              plus 1 mm; printed beside its seed-0 and worst figures);
               one in-process `run.main` of the odometry preset on the same
               dataset: K1 launched once per frame, K2 and its merge once
               per tracked frame after the bootstrap, no plain version
@@ -110,28 +110,56 @@ Phases, each printing one JSON line:
               system with equal arenas, and the last 16 frames, in
               reverse order (they continue from the checkpoint's pose),
               tracked by the "cuda" one; the PNG decoders that ran
+  cli_replay  the runner's loop in process on that dataset (full preset,
+              chunks of 16 in the wire format, deferred, the tail frame by
+              frame) with the RANSAC draws the JAX engine made on it
+              (modular_slam_tpu_torch/data/cli_jax_draws.npz, written by
+              tools/torch_cli_replay.py --record): 96/96 tracked, JAX's
+              per-frame decisions, closures and keyframes, every draw
+              used, frame and keyframe ATE within 1e-4 m of JAX's
   multiseq    multi-sequence tracking (parallel/multiseq.py,
-              BASELINE config 5's data axis): 48-frame 640x480 sequences
+              BASELINE config 5's data axis): 40-frame 640x480 sequences
               with divergent trajectories through MultiSequenceRunner
               (chunks of 8) at B = 1, 3 and 8: every frame tracked, each
-              sequence on its own ground truth (ATE), K1 launched once per
+              sequence with a keyframe after its bootstrap (the batched
+              keyframe insert), each on its own ground truth (ATE), K1 launched once per
               batched frame and K2 and its merge once per batched frame
               after the bootstrap (not B times), no plain version called,
               and each sequence equal to a single-sequence make_slam_scan
               run of its frames and sampler seed (flags and keyframes
               equal, poses within 1e-4 m); ms per batched frame and
               sequence-frames/s for each B
-  evaluate    the evaluation entry point: three 48-frame 640x480 datasets
+  evaluate    the evaluation entry point: three 40-frame 640x480 datasets
               written by `write_dataset` (own seeds), then `python -m
               modular_slam_tpu_torch.eval.evaluate --pipeline slam
               --multiseq` as a subprocess: exit 0, report.json with every
-              sequence's 48 frames, ate_rmse and kf_ate_rmse, ate.csv with
-              6 rows, the multiseq block (batch 3, devices 1, a finite
-              scaling efficiency); whether plot_error was recorded (no
-              matplotlib)
+              sequence's 40 frames, 2 keyframes at least, ate_rmse and
+              kf_ate_rmse, ate.csv with 6 rows, the multiseq block
+              (batch 3, devices 1, a finite scaling efficiency); whether
+              plot_error was recorded (no matplotlib)
+  viewer      the viewer: `python -m modular_slam_tpu_torch.viewer
+              --pipeline slam --out T --ply P` as a subprocess on a
+              48-frame 640x480 dataset (exit 0, 48 trajectory rows, a PLY
+              with elements), then its live loop in process on 8 rendered
+              frames: the slam preset on the card, the overlay after each
+              frame (K2 and its merge once per call, no plain version,
+              equal to the overlay over the plain matcher), a ViewerServer
+              on 127.0.0.1 fed the views, read over HTTP, its /params POST
+              reaching the running system and /control stopping it
+  sharded_ba  (after pgo_cpu_vs_gpu) the sharded bundle adjustments
+              (parallel/sharded_ba.py, kf_sharded_ba.py, halo_ba.py) in a
+              one-rank NCCL world (initialize_distributed from
+              SLAM_COORDINATOR / SLAM_NUM_PROCESSES) on the full phase's
+              final map, each against make_global_ba on the same arena:
+              final cost within 1e-4 relative in float32 at the production
+              budget, poses within 1e-4 m / rad in float64 converged, no
+              halo observation dropped; ms per call (mean of 2 after a
+              warm call) and the warm call's device busy ms.  One card:
+              nothing here is a scaling figure
   kernels     every kernel: launches on the CLI path (`cli`, the main
               path of the entry point slice) and by path (odometry, full,
-              chunk_odometry, chunk, cli, multiseq: the B = 3 run),
+              chunk_odometry, chunk, cli, multiseq: the B = 3 run, viewer:
+              the live loop),
               error, kernel and plain-version device times, the bound
               (bytes or operations at the H100's published peaks), the
               share of it reached, and the library call's time where one
@@ -189,27 +217,50 @@ RELOC_CHUNK = 8             # chunk_relocalize: the kidnap in chunk 2
 CLI_OVERRIDES = ("tracker.new_keyframe_min_inliers=300",
                  "loop.min_gap_keyframes=32", "loop.min_score=0.05",
                  "loop.min_inliers=25")   # the flagship's (loop_config)
-CLI_ATE_BOUND_M = 0.1       # cli: frame ATE of the CLI's full run
-# The JAX runner's frame ATE on the same dataset, on an x86-64 CPU with
-# jax 0.9.0: `JAX_PLATFORMS=cpu python -m modular_slam_tpu.run --cpu
-# --dataset D --pipeline full --out T --ate` with CLI_OVERRIDES' --set
-# flags (the default chunks of 16, wire format and deferral, as in
-# cli_full_command), D written by write_cli_dataset, at commit 915791f.
-# It lies 10 mm below the port's 0.09996-0.10001 m on the card, but with
-# --seed 1, 2, 3 the JAX runner gives 0.1153, 0.1160, 0.1093 m and the
-# port's runner 0.1057, 0.0878, 0.0886 m: the figures move with the
-# RANSAC stream.  The bound was to become this figure plus 1 mm unless
-# the figure lay more than 1 mm below the port's, so it stays 0.1 m.
-CLI_JAX_ATE_M = 0.08957722013188364
+# cli: the bound on the frame ATE of the CLI's full run, a user's own
+# RANSAC draws.  The JAX runner's frame ATE on the same dataset, on an
+# x86-64 CPU with jax 0.9.0 (`JAX_PLATFORMS=cpu python -m
+# modular_slam_tpu.run --cpu --dataset D --pipeline full --out T --ate`
+# with CLI_OVERRIDES' --set flags, the default chunks of 16, wire format
+# and deferral, D written by write_cli_dataset), is 0.0896 m at seed 0
+# and 0.1153, 0.1160, 0.1093 m at --seed 1, 2, 3: the figure moves with
+# the RANSAC stream by more than the port's and JAX's engines differ on
+# the same draws (cli_replay holds those within CLI_REPLAY_TOL_M).  So
+# the bound is the reference's worst over seeds 0-3, CLI_JAX_WORST_ATE_M,
+# plus 1 mm: an absolute check of the user's run that the reference's
+# own spread passes.
+CLI_JAX_ATE_M = 0.08957722013188364        # seed 0
+CLI_JAX_WORST_ATE_M = 0.1160413            # seed 2, the worst of 0-3
+CLI_ATE_BOUND_M = 0.117
+CLI_DATASET = {"frames": LOOP_FRAMES_PER_LAP, "laps": 2, "width": 640,
+               "height": 480, "depth_noise": LOOP_DEPTH_NOISE_M, "seed": 3,
+               "radius": LOOP_RADIUS_M}   # write_cli_dataset's arguments
+# cli_replay: the JAX engine's RANSAC draws on that dataset, and its
+# figures (tools/torch_cli_replay.py --record, on the CPU)
+CLI_DRAWS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "modular_slam_tpu_torch", "data",
+                         "cli_jax_draws.npz")
+CLI_REPLAY_TOL_M = 1e-4     # frame and keyframe ATE against JAX's
 CLI_RESUME_FRAMES = 16
+VIEWER_FRAMES = 48          # viewer: the subprocess's dataset
+VIEWER_LIVE_FRAMES = 8      # viewer: frames of the in-process live loop
+VIEWER_LM_UV_TOL = 1e-5     # viewer: overlay lm_uv, kernel vs plain matcher
+VIEWER_TIMEOUT_S = 300
+SHARDED_TIMED_RUNS = 2      # sharded_ba: timed calls after the traced one
+SHARDED_CONVERGED_CG = 200  # sharded_ba: the float64 solve, as in
+SHARDED_CONVERGED_LM = 10   # ba_cpu_vs_gpu's converged one
 CLI_TIMEOUT_S = 600
 MULTISEQ_BATCHES = (1, 3, 8)   # multiseq: 3 is config 5's fr1+fr2+fr3
 MULTISEQ_MAIN = 3
-MULTISEQ_FRAMES = 48
+# multiseq and evaluate: 40 frames, a chunk of 8 past frame 30, where the
+# tracker's max_kf_interval forces every sequence's second keyframe (the
+# batched keyframe insert); both phases check that each sequence kept it
+MULTISEQ_FRAMES = 40
 MULTISEQ_CHUNK = 8
 MULTISEQ_POSE_TOL_M = 1e-4     # a sequence of the batch vs its single run
 EVAL_DATASETS = 3
-EVAL_FRAMES = 48
+EVAL_FRAMES = 40
+EVAL_MIN_KEYFRAMES = 2
 EVAL_TIMEOUT_S = 600
 LEVEL_SHAPES = [(480, 640), (400, 533), (333, 444), (278, 370),
                 (231, 309), (193, 257), (161, 214), (134, 179)]
@@ -233,7 +284,14 @@ FAST_COMPARES_PER_PIXEL = 8
 FAST_MINMAX_PER_LADDER = 48
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the seconds since the
+    script started (`at_s`)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1221,7 +1279,7 @@ def phase_full(torch, kernels, cfg, poses, frames):
           "keyframe_loop_ms_median": statistics.median(other_ms),
           "stage_ms_profiled": stage,
           "stage_ms_profiled_closures": prof.n_loop_closures})
-    return launches, pgo_inputs, row
+    return launches, pgo_inputs, row, system.arena
 
 
 def phase_lifecycle(torch, cfg, poses, frames) -> None:
@@ -1700,9 +1758,7 @@ def write_cli_dataset(ds_dir: str) -> dict:
     width)."""
     from modular_slam_tpu_torch.eval.make_dataset import write_dataset
 
-    return write_dataset(ds_dir, LOOP_FRAMES_PER_LAP, laps=2, width=640,
-                         height=480, depth_noise=LOOP_DEPTH_NOISE_M, seed=3,
-                         radius=LOOP_RADIUS_M)
+    return write_dataset(ds_dir, **CLI_DATASET)
 
 
 def cli_full_command(ds_dir: str, traj: str, *extra: str) -> list:
@@ -1815,6 +1871,7 @@ def phase_cli(torch, kernels, workdir: str) -> dict:
           "full": {**full, "ms_per_frame": 1e3 * full["wall_s"] / n,
                    "command_s": command_s, "ate_bound_m": CLI_ATE_BOUND_M,
                    "jax_cpu_ate_m": CLI_JAX_ATE_M,
+                   "jax_cpu_worst_ate_m": CLI_JAX_WORST_ATE_M,
                    "overrides": list(CLI_OVERRIDES)},
           "odometry": {**odo, "ms_per_frame": 1e3 * odo["wall_s"] / n,
                        "launches": launches, "plain_calls": dict(calls)},
@@ -1824,6 +1881,427 @@ def phase_cli(torch, kernels, workdir: str) -> dict:
                          "resumed_tracked": resumed_ok,
                          "resumed_keyframes": gpu.n_keyframes},
           "png_decoders": decoders, "native_loader": native.available()})
+    return launches
+
+
+def run_like_runner(system, ds, n: int, chunk: int = CHUNK) -> None:
+    """`run.py`'s loop on n frames of a dataset: full chunks in the wire
+    format, the tail frame by frame, then `flush_backend`."""
+    import numpy as np
+
+    buf = []
+    for i, (gray, depth, ts) in enumerate(ds.wire_iter(native_ok=False)):
+        if i >= n:
+            break
+        buf.append((gray, depth, ts))
+        if len(buf) == chunk:
+            system.process_chunk_wire(*zip(*buf))
+            buf = []
+    for gray, depth, ts in buf:
+        system.process(np.repeat(gray[..., None], 3, axis=-1),
+                       depth.astype(np.float32) * ds.camera.depth_factor, ts)
+    system.flush_backend()
+
+
+def tum_trajectory(system):
+    """The system's frame trajectory as TUM rows [N, 8], float64."""
+    import numpy as np
+
+    rows = []
+    for ts, pose in system.trajectory:
+        q = pose.q.cpu().double().numpy()
+        rows.append([ts, *pose.t.cpu().double().numpy(), *q[1:], q[0]])
+    return np.array(rows)
+
+
+class RecordedDraws:
+    """A RANSAC sampler that hands out recorded draws in order: the rows
+    the JAX engine's keys gave, each [n_hyp, 3], uploaded from pinned
+    memory without a host sync."""
+
+    def __init__(self, draws):
+        import torch
+
+        self.draws = torch.from_numpy(draws.astype("int64")).pin_memory()
+        self.used = 0
+
+    def __call__(self, valid, n_hyp):
+        check(self.used < len(self.draws),
+              f"cli_replay: draw {self.used + 1} asked for, "
+              f"{len(self.draws)} recorded")
+        d = self.draws[self.used]
+        check(d.shape[0] == n_hyp, f"cli_replay: draw {self.used} has "
+                                   f"{d.shape[0]} hypotheses, {n_hyp} asked")
+        self.used += 1
+        return d.to(valid.device, non_blocking=True)
+
+
+def phase_cli_replay(torch, ds_dir: str) -> None:
+    """The runner's full-preset loop on the cli dataset (written into
+    ds_dir unless it is there), on the card, with the RANSAC draws the
+    JAX engine made on it (CLI_DRAWS, recorded by
+    tools/torch_cli_replay.py --record): every frame tracked, the JAX
+    run's per-frame tracking and keyframe decisions, closures and
+    keyframes, every draw used, and frame and keyframe ATE within
+    CLI_REPLAY_TOL_M of JAX's."""
+    import numpy as np
+
+    from modular_slam_tpu_torch.config import SlamConfig
+    from modular_slam_tpu_torch.eval.ate import ate_rmse
+    from modular_slam_tpu_torch.io import TumRgbdDataset
+    from modular_slam_tpu_torch.models import make_pipeline
+    from modular_slam_tpu_torch.run import apply_overrides
+
+    rec = np.load(CLI_DRAWS)
+    check(json.loads(str(rec["dataset"])) == json.loads(
+        json.dumps(CLI_DATASET, sort_keys=True))
+          and tuple(rec["overrides"]) == CLI_OVERRIDES,
+          f"cli_replay: the draws were recorded for {rec['dataset']} "
+          f"{rec['overrides']}")
+    if not os.path.exists(os.path.join(ds_dir, "rgb.txt")):
+        write_cli_dataset(ds_dir)
+    ds = TumRgbdDataset(ds_dir)
+    n = int(rec["frames"])
+    cfg = apply_overrides(SlamConfig().replace(camera=ds.camera),
+                          CLI_OVERRIDES)
+    sampler = RecordedDraws(rec["draws"])
+    system = make_pipeline("full", cfg, device="cuda", sampler=sampler,
+                           defer_chunk_sync=True)
+    t0 = time.perf_counter()
+    run_like_runner(system, ds, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flags = np.array([[bool(r.tracking_ok), bool(r.new_keyframe)]
+                      for r in system.results])
+    want = np.stack([rec["jax_tracking_ok"], rec["jax_new_keyframe"]], 1)
+    differ = np.flatnonzero((flags != want).any(axis=1))
+    check(len(flags) == n and flags[:, 0].all(),
+          f"cli_replay: {int(flags[:, 0].sum())} of {n} frames tracked")
+    check(not len(differ), f"cli_replay: first frame whose decision "
+                           f"differs from JAX's: {differ[:1].tolist()} "
+                           f"(tracking_ok, new_keyframe) {flags[differ[:1]]}"
+                           f" vs {want[differ[:1]]}")
+    check(system.n_loop_closures == int(rec["jax_loop_closures"])
+          and system.n_keyframes == int(rec["jax_keyframes"]),
+          f"cli_replay: {system.n_loop_closures} closures and "
+          f"{system.n_keyframes} keyframes, JAX "
+          f"{int(rec['jax_loop_closures'])} and {int(rec['jax_keyframes'])}")
+    check(sampler.used == len(sampler.draws),
+          f"cli_replay: {sampler.used} of {len(sampler.draws)} draws used")
+    gt = ds.groundtruth
+    ate = ate_rmse(tum_trajectory(system), gt, max_difference=0.05)["rmse"]
+    kf_ate = ate_rmse(system.keyframe_trajectory(), gt,
+                      max_difference=0.05)["rmse"]
+    gaps = {"ate": abs(ate - float(rec["jax_ate_rmse_m"])),
+            "kf_ate": abs(kf_ate - float(rec["jax_kf_ate_rmse_m"]))}
+    check(max(gaps.values()) <= CLI_REPLAY_TOL_M,
+          f"cli_replay: frame ATE {ate} m, keyframe ATE {kf_ate} m; JAX "
+          f"{float(rec['jax_ate_rmse_m'])}, "
+          f"{float(rec['jax_kf_ate_rmse_m'])} m (tolerance "
+          f"{CLI_REPLAY_TOL_M} m)")
+    emit({"phase": "cli_replay", "frames": n, "size": "640x480",
+          "draws": len(sampler.draws), "draws_used": sampler.used,
+          "ate_rmse_m": ate, "kf_ate_rmse_m": kf_ate,
+          "jax_ate_rmse_m": float(rec["jax_ate_rmse_m"]),
+          "jax_kf_ate_rmse_m": float(rec["jax_kf_ate_rmse_m"]),
+          "port_cpu_ate_rmse_m": float(rec["port_cpu_ate_rmse_m"]),
+          "gap_m": gaps, "tol_m": CLI_REPLAY_TOL_M,
+          "loop_closures": system.n_loop_closures,
+          "keyframes": system.n_keyframes,
+          "ms_per_frame": 1e3 * wall / n, "card": _card()})
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _traced_call(torch, fn):
+    """One call of fn under torch.profiler -> (its result, the device
+    busy ms: the durations of the trace's device events, summed).  They
+    are read from the trace's raw events: key_averages() takes 10-17 s
+    to tabulate a full-capacity BA's tens of thousands of kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return out, sum(e.duration_ns()
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == cuda) / 1e6
+
+
+def phase_sharded_ba(torch, cfg, arena) -> None:
+    """The sharded bundle adjustments (parallel/sharded_ba.py,
+    kf_sharded_ba.py, halo_ba.py) in a one-rank NCCL world on the full
+    phase's final map, each against make_global_ba on the same arena: in
+    float32 at the production budget on the final cost, in float64
+    converged on poses and landmarks; ms per call and device busy ms."""
+    import torch.distributed as dist
+
+    from modular_slam_tpu_torch.parallel import (
+        make_halo_sharded_global_ba, make_kf_mesh, make_kf_sharded_global_ba,
+        make_mesh, make_sharded_global_ba)
+    from modular_slam_tpu_torch.parallel.bootstrap import (
+        initialize_distributed, process_info)
+
+    env = {"SLAM_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "SLAM_NUM_PROCESSES": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        check(initialize_distributed(), "sharded_ba: no process group")
+        backend, info = dist.get_backend(), process_info()
+        check(backend == "nccl", f"sharded_ba: backend {backend}")
+        check(info == {"process_id": 0, "num_processes": 1,
+                       "local_devices": 1, "global_devices": 1},
+              f"sharded_ba: process_info {info}")
+        rows = _sharded_runs(torch, cfg, arena, {
+            "sharded": (make_sharded_global_ba, make_mesh(seq=1, obs=1)),
+            "kf_sharded": (make_kf_sharded_global_ba,
+                           make_kf_mesh(kf=1, obs=1)),
+            "halo": (make_halo_sharded_global_ba,
+                     make_kf_mesh(kf=1, obs=1))})
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    emit({"phase": "sharded_ba", "backend": backend, "world_size": 1,
+          "process_info": info, "caps": [arena.max_keyframes,
+                                         arena.max_landmarks,
+                                         arena.max_observations],
+          "keyframes": int(arena.kf_valid.sum()),
+          "landmarks": int(arena.lm_valid.sum()),
+          "observations": int(arena.obs_valid.sum()),
+          "cost_rtol": GBA_COST_RTOL, "tol_m": BA_POSE_TOL_M,
+          "tol_rad": BA_POSE_TOL_RAD, "lm_tol_m": BA_LM_TOL_M,
+          "timed_runs": SHARDED_TIMED_RUNS, **rows,
+          "note": "NCCL at world size 1 on one card: no scaling figure",
+          "card": _card()})
+
+
+def _sharded_runs(torch, cfg, arena, fns):
+    """Each sharded function and make_global_ba in float32 (production
+    budget) and float64 (converged) -> the phase's rows."""
+    import dataclasses
+
+    from modular_slam_tpu_torch.backend.ba import make_global_ba
+
+    conv = dataclasses.replace(cfg, backend=dataclasses.replace(
+        cfg.backend, cg_iters=SHARDED_CONVERGED_CG,
+        max_iterations=SHARDED_CONVERGED_LM))
+    built = {"global_ba": (make_global_ba(cfg, device="cuda"),
+                           make_global_ba(conv, device="cuda"))}
+    for name, (make, mesh) in fns.items():
+        built[name] = (make(cfg, mesh), make(conv, mesh))
+    out = {}
+    for name, (fn, fn64) in built.items():
+        def call(fn=fn):
+            return fn(_arena_on(arena, "cuda"))
+
+        t0 = time.perf_counter()
+        res, busy = _traced_call(torch, call)       # the warm call
+        t1 = time.perf_counter()
+        times = []
+        for _ in range(SHARDED_TIMED_RUNS):
+            a = _arena_on(arena, "cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(a)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        t2 = time.perf_counter()
+        res64 = fn64(_arena_on(arena, "cuda", torch.float64))
+        torch.cuda.synchronize()
+        out[name] = {"f32": res, "f64": res64,
+                     "ms_per_call": statistics.mean(times),
+                     "ms_per_call_runs": times,
+                     "device_busy_ms": busy,
+                     "seconds": {"traced_call": t1 - t0, "timed": t2 - t1,
+                                 "f64_converged":
+                                     time.perf_counter() - t2}}
+    ref, ref64 = out["global_ba"]["f32"], out["global_ba"]["f64"]
+    valid_kf, valid_lm = arena.kf_valid.cpu(), arena.lm_valid.cpu()
+    rows = {}
+    for name, r in out.items():
+        row = {k: r[k] for k in ("ms_per_call", "ms_per_call_runs",
+                                 "device_busy_ms", "seconds")}
+        st = r["f32"][1]
+        row.update(initial_cost=float(st.initial_cost),
+                   final_cost=float(st.final_cost))
+        if name != "global_ba":
+            rel = abs(float(st.final_cost) - float(ref[1].final_cost)) / \
+                float(ref[1].final_cost)
+            a, b = (_arena_on(x[0], "cpu") for x in (r["f64"], ref64))
+            dt, dr = _pose_diffs(torch, a.kf_q, a.kf_t, b.kf_q, b.kf_t,
+                                 valid_kf)
+            dl = float((a.lm_pos[valid_lm] - b.lm_pos[valid_lm]).abs().max())
+            check(rel <= GBA_COST_RTOL,
+                  f"sharded_ba: {name} final cost {float(st.final_cost)}, "
+                  f"make_global_ba {float(ref[1].final_cost)}")
+            check(dt <= BA_POSE_TOL_M and dr <= BA_POSE_TOL_RAD
+                  and dl <= BA_LM_TOL_M,
+                  f"sharded_ba: {name} float64 differs from make_global_ba "
+                  f"by {dt} m, {dr} rad, landmarks {dl} m")
+            check(a.kf_q.dtype == torch.float64,
+                  f"sharded_ba: {name} returned {a.kf_q.dtype}")
+            row.update(cost_rel_diff=rel, f64_max_dt_m=dt,
+                       f64_max_drot_rad=dr, f64_max_dlm_m=dl)
+        if name == "halo":
+            diag = {k: int(v) for k, v in r["f32"][2].items()}
+            check(diag["n_dropped_obs"] == 0,
+                  f"sharded_ba: halo dropped observations: {diag}")
+            row["diag"] = diag
+        if name in ("kf_sharded", "halo"):
+            row["blocks"] = r["f32"][-1]
+        rows[name] = row
+    return rows
+
+
+def _plain_matcher_overlay(overlay_fn, *args):
+    """The overlay over the plain matcher (ops/match.py's
+    `match_descriptors` swapped for `match_descriptors_plain`)."""
+    from modular_slam_tpu_torch.ops import match
+
+    kernel = match.match_descriptors
+    match.match_descriptors = match.match_descriptors_plain
+    try:
+        return overlay_fn(*args)
+    finally:
+        match.match_descriptors = kernel
+
+
+def _http(url: str, body=None):
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, method="GET" if body is None else "POST",
+        data=None if body is None else json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.status, r.read()
+
+
+def phase_viewer(torch, kernels, frames, workdir: str) -> dict:
+    """The viewer: `python -m modular_slam_tpu_torch.viewer` as a
+    subprocess on a dataset the port writes, then its live loop in
+    process on rendered frames (the slam preset on the card, the overlay
+    per frame, a ViewerServer fed and driven over HTTP) -> that loop's
+    launches."""
+    import numpy as np
+
+    from modular_slam_tpu_torch.config import SlamConfig
+    from modular_slam_tpu_torch.eval.make_dataset import write_dataset
+    from modular_slam_tpu_torch.models import make_pipeline
+    from modular_slam_tpu_torch.viz.overlay import (depth_colormap,
+                                                    draw_observations,
+                                                    make_overlay_fn)
+    from modular_slam_tpu_torch.viz.server import ViewerServer
+
+    ds_dir = os.path.join(workdir, "viewer_ds")
+    check(write_dataset(ds_dir, VIEWER_FRAMES, loop=False, width=640,
+                        height=480, seed=30)["frames"] == VIEWER_FRAMES,
+          "viewer: dataset")
+    traj, ply = (os.path.join(workdir, f) for f in ("viewer.txt",
+                                                     "viewer.ply"))
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "modular_slam_tpu_torch.viewer", "--dataset",
+         ds_dir, "--pipeline", "slam", "--out", traj, "--ply", ply],
+        cwd=root, capture_output=True, text=True, timeout=VIEWER_TIMEOUT_S)
+    command_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"viewer: exited {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    rows = np.loadtxt(traj, ndmin=2)
+    check(rows.shape == (VIEWER_FRAMES, 8) and np.isfinite(rows).all(),
+          f"viewer: trajectory {rows.shape}")
+    with open(ply, "rb") as f:
+        header = f.read(512).split(b"end_header")[0].decode()
+    n_ply = sum(int(line.split()[2]) for line in header.splitlines()
+                if line.startswith("element"))
+    check(n_ply > 0, f"viewer: PLY header {header!r}")
+
+    # the live loop in process: the viewer's per-frame work with --serve
+    system = make_pipeline("slam", SlamConfig(), device="cuda", seed=0)
+    overlay_fn = make_overlay_fn(system.cfg, "cuda")
+    server = ViewerServer(port=0, host="127.0.0.1").start()
+    calls, restore = _plain_calls()
+    per_call = []
+    try:
+        server.state.params = system.params
+        kernels.reset_launch_counts()
+        for rgb, depth, ts in frames[:VIEWER_LIVE_FRAMES]:
+            system.process(rgb, depth, ts)
+            before = kernels.launch_counts()
+            od = overlay_fn(system.arena, system.state, system.last_features)
+            after = kernels.launch_counts()
+            per_call.append({k: after[k] - before[k] for k in after})
+            server.state.publish_frame(draw_observations(
+                rgb, od.kp_uv.cpu().numpy(), od.lm_uv.cpu().numpy(),
+                od.valid.cpu().numpy()))
+            server.state.publish_depth(depth_colormap(depth))
+            server.state.publish_stats(system.stats())
+        launches = kernels.launch_counts()
+    finally:
+        restore()
+    try:
+        check(not calls, f"viewer: plain versions ran on the card: "
+                         f"{dict(calls)}")
+        once = {"fast_score": 0, "hamming_2nn": 1, "hamming_merge": 1}
+        check(all(c == once for c in per_call),
+              f"viewer: launches per overlay call {per_call}")
+        n = VIEWER_LIVE_FRAMES
+        want = {"fast_score": n, "hamming_2nn": 2 * n - 1,
+                "hamming_merge": 2 * n - 1}
+        check(launches == want, f"viewer: launches {launches}, expected "
+                                f"{want} (K2: every tracked frame after the "
+                                f"bootstrap and every overlay call)")
+        plain = _plain_matcher_overlay(overlay_fn, system.arena,
+                                       system.state, system.last_features)
+        n_valid = int(od.valid.sum())
+        d_lm = float((od.lm_uv - plain.lm_uv).abs().max())
+        check(torch.equal(od.valid, plain.valid)
+              and torch.equal(od.kp_uv, plain.kp_uv) and n_valid > 0
+              and d_lm <= VIEWER_LM_UV_TOL,
+              f"viewer: overlay differs from the plain matcher's: "
+              f"{n_valid} valid, lm_uv {d_lm}")
+
+        base = server.url.rstrip("/")
+        st, body = _http(base + "/stats.json")
+        stats = json.loads(body)
+        check(st == 200 and stats.get("keyframes") == system.n_keyframes,
+              f"viewer: /stats.json {st} {stats}")
+        st, body = _http(base + "/frame.png")
+        check(st == 200 and body[:8] == b"\x89PNG\r\n\x1a\n",
+              f"viewer: /frame.png {st}")
+        old = system.params.get("min_matched_points")
+        st, _ = _http(base + "/params", {"name": "min_matched_points",
+                                         "value": old + 1})
+        check(st == 200 and system.params.get("min_matched_points")
+              == old + 1 and system.cfg.tracker.min_matched_points
+              == old + 1, "viewer: POST /params did not reach the system")
+        st, _ = _http(base + "/control", {"action": "stop"})
+        check(st == 200 and server.state.stopped.is_set()
+              and not server.state.wait_if_paused(),
+              "viewer: POST /control stop")
+    finally:
+        server.stop()
+    emit({"phase": "viewer", "frames": VIEWER_FRAMES, "size": "640x480",
+          "command_s": command_s, "trajectory_rows": int(rows.shape[0]),
+          "ply_elements": n_ply, "live_frames": VIEWER_LIVE_FRAMES,
+          "launches": launches, "launches_per_overlay_call": per_call[-1],
+          "plain_calls": dict(calls), "overlay_valid": n_valid,
+          "overlay_lm_uv_max_diff_px": d_lm,
+          "lm_uv_tol_px": VIEWER_LM_UV_TOL, "card": _card()})
     return launches
 
 
@@ -1925,6 +2403,10 @@ def phase_multiseq(torch, kernels, cfg) -> dict:
             ok = np.array(runner.tracking_ok[b])
             check(ok.all(), f"multiseq B={B}: sequence {b} tracked "
                             f"{int(ok.sum())} of {n}")
+            check(int(n_kf[b]) >= 2,
+                  f"multiseq B={B}: sequence {b} kept {int(n_kf[b])} "
+                  f"keyframe(s) in {n} frames: no keyframe after the "
+                  f"bootstrap, so the batched insert never ran")
             est = np.array([[ts, *p.t.numpy(), *p.q.numpy()[1:],
                              float(p.q[0])]
                             for ts, p in runner.trajectories[b]])
@@ -1985,7 +2467,9 @@ def phase_evaluate(torch, workdir: str) -> None:
           f"evaluate: sequences {sorted(seqs)}")
     for name, row in seqs.items():
         check(row["frames"] == EVAL_FRAMES and "ate_rmse" in row
-              and "kf_ate_rmse" in row, f"evaluate: {name}: {row}")
+              and "kf_ate_rmse" in row
+              and row["keyframes"] >= EVAL_MIN_KEYFRAMES,
+              f"evaluate: {name}: {row}")
     with open(os.path.join(out, "ate.csv")) as f:
         csv_rows = f.read().strip().splitlines()[1:]
     check(len(csv_rows) == 2 * EVAL_DATASETS,
@@ -2047,7 +2531,7 @@ def main() -> int:
     phase_ba_profile(torch, slam, cfg)
     lcfg = loop_config()
     loop_poses, loop_frames_ = loop_frames(lcfg)
-    full_launches, pgo_inputs, full_row = phase_full(
+    full_launches, pgo_inputs, full_row, full_arena = phase_full(
         torch, kernels, lcfg, loop_poses, loop_frames_)
     chunk_launches = phase_chunk_full(torch, kernels, lcfg, loop_poses,
                                       loop_frames_, full_row)
@@ -2055,11 +2539,15 @@ def main() -> int:
     phase_relocalize(torch)
     phase_chunk_relocalize(torch)
     phase_pgo_cpu_vs_gpu(torch, lcfg, pgo_inputs)
+    phase_sharded_ba(torch, lcfg, full_arena)
+    del full_arena
     workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         cli_launches = phase_cli(torch, kernels, workdir)
+        phase_cli_replay(torch, os.path.join(workdir, "loop"))
         multiseq_launches = phase_multiseq(torch, kernels, cfg)
         phase_evaluate(torch, workdir)
+        viewer_launches = phase_viewer(torch, kernels, frames, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2074,7 +2562,8 @@ def main() -> int:
                               "chunk_odometry": chunk_odo_launches[k.name],
                               "chunk": chunk_launches[k.name],
                               "cli": cli_launches[k.name],
-                              "multiseq": multiseq_launches[k.name]},
+                              "multiseq": multiseq_launches[k.name],
+                              "viewer": viewer_launches[k.name]},
          **{key: timing[k.name][key] for key in keys}}
         for k in kernels.KERNELS.values()]})
 

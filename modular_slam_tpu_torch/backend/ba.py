@@ -149,6 +149,23 @@ def _segment_sum(x: Tensor, idx: Tensor, n: int) -> Tensor:
     return out.index_add_(0, idx, x)
 
 
+def residual_model(cam: Camera, cfg, residual_type: str):
+    """-> (residuals(q_cw, t_cw, lm, obs) -> (r, Jp, Jl), Huber delta) for
+    a residual type; the delta lives in its units, meters (p2p) or
+    pixels."""
+    def residuals(q_cw, t_cw, lm, obs):
+        R = quat_to_matrix(q_cw)
+        if residual_type == "p2p":
+            return point2point_residuals(R, t_cw, lm, obs)
+        if residual_type == "rgbd":
+            return rgbd_residuals(cam, R, t_cw, lm, obs,
+                                  depth_weight=cfg.depth_weight)
+        return reprojection_residuals(cam, R, t_cw, lm, obs)
+
+    delta = cfg.huber_delta if residual_type == "p2p" else cfg.huber_delta_px
+    return residuals, delta
+
+
 def ba_core(
     cam: Camera,
     kf_q_wc: Tensor, kf_t_wc: Tensor,   # [K,4],[K,3] camera-to-world
@@ -175,17 +192,10 @@ def ba_core(
     L = lm_pos.shape[0]
     dt = lm_pos.dtype    # float32 in the engine
     tcw0 = pose_inverse(Pose(q=kf_q_wc, t=kf_t_wc))
-    # huber deltas live in residual units: meters (p2p) vs pixels
-    delta = cfg.huber_delta if residual_type == "p2p" else cfg.huber_delta_px
+    model, delta = residual_model(cam, cfg, residual_type)
 
     def residuals(q_cw, t_cw, lm):
-        R = quat_to_matrix(q_cw)
-        if residual_type == "p2p":
-            return point2point_residuals(R, t_cw, lm, obs)
-        if residual_type == "rgbd":
-            return rgbd_residuals(cam, R, t_cw, lm, obs,
-                                  depth_weight=cfg.depth_weight)
-        return reprojection_residuals(cam, R, t_cw, lm, obs)
+        return model(q_cw, t_cw, lm, obs)
 
     pf_obs = pose_free[obs.kf].to(dt)[:, None, None]
     lf_obs = lm_free[obs.lm].to(dt)[:, None, None]

@@ -5,7 +5,9 @@ preset (local BA) and the full preset (loop closure, relocalization, and
 map compaction in a 2-keyframe pool) on the CPU; run the command-line
 runner on data/sample, saving a checkpoint and resuming from it, and
 write a dataset; track two sequences batched and evaluate data/sample;
-`chip_smoke.py` imports too, and without a card exits non-zero."""
+run the viewer, its overlay and server, and the three sharded bundle
+adjustments in a one-rank gloo world; `chip_smoke.py` imports too, and
+without a card exits non-zero."""
 
 import os
 import subprocess
@@ -75,6 +77,37 @@ SCRIPT = textwrap.dedent("""
                               "--cpu"]) == 0
     for m in ("eval.evaluate", "eval.report", "parallel.mesh",
               "parallel.dp", "parallel.multiseq"):
+        assert "modular_slam_tpu_torch." + m in sys.modules, m
+    from modular_slam_tpu_torch import viewer
+    from modular_slam_tpu_torch.viz import make_overlay_fn
+    from modular_slam_tpu_torch.viz.server import ViewerServer
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert viewer.main(["--dataset", "data/sample", "--cpu",
+                            "--max-frames", "2", "--out",
+                            os.path.join(tmp, "viewer.txt")]) == 0
+    od = make_overlay_fn(cfg, device="cpu")(slam.arena, slam.state,
+                                            slam.last_features)
+    assert int(od.valid.sum()) > 0
+    ViewerServer(port=0).start().stop()
+    import socket
+    from modular_slam_tpu_torch.parallel import (
+        make_halo_sharded_global_ba, make_kf_mesh, make_kf_sharded_global_ba,
+        make_sharded_global_ba)
+    from modular_slam_tpu_torch.parallel.bootstrap import (
+        initialize_distributed, process_info)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert initialize_distributed(f"127.0.0.1:{port}", 1, 0, cpu_gloo=True)
+    assert process_info()["num_processes"] == 1
+    mesh = make_kf_mesh(kf=1, obs=1)
+    for make in (make_sharded_global_ba, make_kf_sharded_global_ba,
+                 make_halo_sharded_global_ba):
+        stats = make(cfg, mesh)(slam.arena)[1]
+        assert float(stats.final_cost) <= float(stats.initial_cost)
+    for m in ("viewer", "viz.overlay", "viz.scene", "viz.server",
+              "parallel.bootstrap", "parallel.sharded_ba",
+              "parallel.kf_sharded_ba", "parallel.halo_ba"):
         assert "modular_slam_tpu_torch." + m in sys.modules, m
     import torch
     import chip_smoke

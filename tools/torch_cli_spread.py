@@ -19,7 +19,10 @@ trajectories start at the identity).  `--out DIR` keeps each run's
 trajectory there, with the dataset's `groundtruth.txt`; `--dataset DIR`
 keeps the dataset in DIR and reuses it when it is there.  Each `--arg=A`
 appends A to the runner's command (repeatable; a later `--pipeline` or
-`--chunk` overrides the phase's).  Exits non-zero without a card.
+`--chunk` overrides the phase's).  `--replay` runs `chip_smoke.py`'s
+`cli_replay` phase RUNS times in this process instead (the JAX engine's
+recorded draws), printing its line, or the failed check, per run.  Exits
+non-zero without a card.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ def main() -> int:
     ap.add_argument("--arg", action="append", default=[])
     ap.add_argument("--dataset", default=None,
                     help="keep the dataset in DIR (written if absent)")
+    ap.add_argument("--replay", action="store_true",
+                    help="run the cli_replay phase instead")
     args = ap.parse_args()
     import torch
 
@@ -61,6 +66,14 @@ def main() -> int:
         ds = args.dataset or os.path.join(work, "loop")
         if not os.path.exists(os.path.join(ds, "groundtruth.txt")):
             chip_smoke.write_cli_dataset(ds)
+        if args.replay:
+            for k in range(args.runs):
+                try:
+                    chip_smoke.phase_cli_replay(torch, ds)
+                except AssertionError as e:
+                    print(json.dumps({"run": k, "failed": str(e)}),
+                          flush=True)
+            return 0
         out = args.out or work
         os.makedirs(out, exist_ok=True)
         shutil.copy(os.path.join(ds, "groundtruth.txt"), out)
