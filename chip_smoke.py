@@ -38,6 +38,18 @@ Phases, each printing one JSON line:
               keyframe frame
   cpu_vs_gpu  the same 8 frames through the odometry preset on "cpu" (plain
               versions) and on "cuda" (kernels) with equally seeded samplers
+  api         the rest of the public surface at 640x480, SlamConfig():
+              detect_until at each cut equal to the matching fields of
+              detect on the same frame, one K1 launch per call;
+              gaussian_blur, ic_angle and brief_descriptors on the card
+              against their CPU runs (1e-4 on 0..255; 3e-4 rad;
+              bit-equal), moment_maps on the card and the CPU each within
+              2e-4 of the largest interior moment of the exact moments
+              (the same sums in float64), none launching a kernel;
+              covis_counts of the odometry phase's final map equal to
+              its CPU copy's; and a 0-d
+              geometric_verify equal to row 0 of the [1]-batched call,
+              one K2 and one merge launch each
   profile     per-stage host and device time, device busy time, idle
               share and top device ops per odometry frame
   slam        the slam preset, make_pipeline("slam", SlamConfig(),
@@ -159,7 +171,7 @@ Phases, each printing one JSON line:
   kernels     every kernel: launches on the CLI path (`cli`, the main
               path of the entry point slice) and by path (odometry, full,
               chunk_odometry, chunk, cli, multiseq: the B = 3 run, viewer:
-              the live loop),
+              the live loop, api: the api phase's calls),
               error, kernel and plain-version device times, the bound
               (bytes or operations at the H100's published peaks), the
               share of it reached, and the library call's time where one
@@ -212,6 +224,9 @@ RELOC_TOL_M = 0.05
 PGO_POSE_TOL = 1e-4         # pgo_cpu_vs_gpu (m and rad)
 PGO_COST_RTOL = 1e-4
 TIMED_RUNS = 25
+API_BLUR_TOL = 1e-4         # api: gaussian_blur, card vs CPU, on 0..255
+API_MOMENT_RTOL = 2e-4      # api: off the exact moments, of the largest
+API_ANGLE_TOL_RAD = 3e-4    # api: ic_angle, card vs CPU
 CHUNK = 16                  # chunk_* and cli phases: frames per chunk
 RELOC_CHUNK = 8             # chunk_relocalize: the kidnap in chunk 2
 CLI_OVERRIDES = ("tracker.new_keyframe_min_inliers=300",
@@ -716,6 +731,144 @@ def phase_cpu_vs_gpu(torch, frames, cfg) -> None:
           "flags_equal": True, "max_dt_m": dt, "max_drot_rad": dr,
           "tol_m": POSE_TOL_M, "tol_rad": POSE_TOL_RAD,
           "frames_with_equal_match_and_inlier_counts": same_counts})
+
+
+def phase_api(torch, kernels, frame, cfg, odo) -> collections.Counter:
+    """The public names beyond the engine's path on the card: the staged
+    detector against `detect`, the reference ORB functions against their
+    CPU runs, covisibility counts and one-candidate verification on the
+    odometry phase's final map.  -> the launches of its calls."""
+    import numpy as np
+
+    from modular_slam_tpu_torch.geometry.camera import camera_from_config
+    from modular_slam_tpu_torch.io.tum import rgb_to_luma
+    from modular_slam_tpu_torch.loop.detector import geometric_verify
+    from modular_slam_tpu_torch.map import covis_counts
+    from modular_slam_tpu_torch.ops import detect, gaussian_blur
+    from modular_slam_tpu_torch.ops.brief import brief_descriptors
+    from modular_slam_tpu_torch.ops.detector import CUTS, detect_until
+    from modular_slam_tpu_torch.ops.orient import (IC_RADIUS, ic_angle,
+                                                   moment_maps)
+    from modular_slam_tpu_torch.ops.pnp import MultinomialSampler
+    from modular_slam_tpu_torch.ops.pyramid import level_scale
+    from modular_slam_tpu_torch.types import bits_to_pm1
+
+    t0 = time.perf_counter()
+    total = collections.Counter()
+
+    def counted(fn, want: dict, label: str):
+        kernels.reset_launch_counts()
+        out = fn()
+        got = {k: v for k, v in kernels.launch_counts().items() if v}
+        check(got == want, f"api: {label} launched {got}, expected {want}")
+        total.update(got)
+        return out
+
+    dcfg = cfg.detector
+    gray = rgb_to_luma(torch.from_numpy(frame[0])).to("cuda")
+    depth = torch.from_numpy(np.asarray(frame[1], np.float32)).to("cuda")
+    k1 = {"fast_score": 1}
+    feats = counted(lambda: detect(gray, depth, dcfg), k1, "detect")
+    kp = feats.keypoints
+    cut = {c: counted(lambda: detect_until(gray, depth, dcfg, c), k1,
+                      f"detect_until {c}") for c in CUTS}
+    yx, lvl, resp = cut["select"]
+    valid = resp > 0
+    br = dcfg.blur_ksize // 2
+    scales = torch.tensor([level_scale(dcfg, i) for i in
+                           range(dcfg.n_levels)], device="cuda")
+    same = {
+        "select": (torch.equal(valid, kp.valid)
+                   and torch.equal(resp[valid], kp.response[valid])
+                   and torch.equal(lvl[valid], kp.level[valid])
+                   and torch.equal(yx.flip(-1).float()
+                                   * scales[lvl.long()][:, None], kp.uv)),
+        "atlas": (all(torch.equal(a, b) for a, b in
+                      zip(cut["atlas"][:3], cut["select"]))
+                  and torch.equal(cut["atlas"][3][0, br:-br, br:-br], gray)),
+        "orient": torch.equal(cut["orient"][3], kp.angle),
+        "brief": (torch.equal(cut["brief"][3], kp.angle)
+                  and torch.equal(bits_to_pm1(cut["brief"][4]),
+                                  feats.descriptors.unpacked)),
+        "full": all(torch.equal(a, b) for a, b in zip(cut["full"], (
+            kp.uv, kp.angle, kp.depth, feats.descriptors.unpacked))),
+    }
+    check(all(same.values()), f"api: detect_until against detect {same}")
+
+    # the reference ORB functions: card against CPU
+    none = {}
+    yx_v = yx[valid]
+    g_h, yx_h = gray.cpu(), yx_v.cpu()
+    blur = counted(lambda: gaussian_blur(gray), none, "gaussian_blur")
+    blur_h = gaussian_blur(g_h)
+    blur_err = float((blur.cpu() - blur_h).abs().max())
+    # float32 prefix sums of a 640-wide row reach ~3e7, so the strip
+    # differences carry their rounding (tens, in moments of ~2e5) in any
+    # summation order: card and CPU are each held to the exact moments,
+    # the same sums in float64, as the JAX test holds its maps to the
+    # patch oracle
+    mm = counted(lambda: moment_maps(gray), none, "moment_maps")
+    mm = mm.cpu().double()
+    mm_h = moment_maps(g_h).double()
+    exact = moment_maps(g_h.double())
+    inner = (slice(None), slice(IC_RADIUS + 1, -IC_RADIUS - 1),
+             slice(IC_RADIUS + 1, -IC_RADIUS - 1))
+    mm_scale = float(exact[inner].abs().max())
+    mm_err = float((mm - exact)[inner].abs().max())
+    mm_err_h = float((mm_h - exact)[inner].abs().max())
+    mm_diff = float((mm - mm_h)[inner].abs().max())
+    ang = counted(lambda: ic_angle(gray, yx_v), none, "ic_angle").cpu()
+    ang_h = ic_angle(g_h, yx_h)
+    ang_err = float((ang - ang_h).abs().max())
+    bits = counted(lambda: brief_descriptors(blur_h.cuda(), yx_v,
+                                             ang_h.cuda()),
+                   none, "brief_descriptors").cpu()
+    bits_diff = int((bits != brief_descriptors(blur_h, yx_h, ang_h)).sum())
+    check(blur_err <= API_BLUR_TOL, f"api: gaussian_blur {blur_err}")
+    check(max(mm_err, mm_err_h) <= API_MOMENT_RTOL * mm_scale,
+          f"api: moment_maps off the exact moments by {mm_err} (card), "
+          f"{mm_err_h} (CPU), of {mm_scale}")
+    check(ang_err <= API_ANGLE_TOL_RAD, f"api: ic_angle {ang_err} rad")
+    check(bits_diff == 0, f"api: brief_descriptors, {bits_diff} bits differ")
+
+    # the odometry phase's final map
+    arena = odo.arena
+    covis = counted(lambda: covis_counts(arena), none, "covis_counts")
+    check(torch.equal(covis.cpu(), covis_counts(_arena_on(arena, "cpu"))),
+          "api: covis_counts on the card differ from the CPU's")
+    cam = camera_from_config(cfg.camera, device="cuda")
+    slot = int(arena.n_kf) - 1
+    k2 = {"hamming_2nn": 1, "hamming_merge": 1}
+    one = counted(lambda: geometric_verify(
+        arena, torch.tensor(slot, device="cuda"), odo.last_features, cam,
+        cfg, MultinomialSampler(0)), k2, "geometric_verify (0-d)")
+    row = counted(lambda: geometric_verify(
+        arena, torch.tensor([slot], device="cuda"), odo.last_features, cam,
+        cfg, MultinomialSampler(0)), k2, "geometric_verify ([1])")
+    check(one.ok.dim() == 0 and one.n_inliers.dim() == 0
+          and tuple(one.pose.q.shape) == (4,)
+          and tuple(one.pose.t.shape) == (3,),
+          "api: 0-d geometric_verify shapes")
+    check(bool(one.ok) == bool(row.ok[0])
+          and int(one.n_inliers) == int(row.n_inliers[0])
+          and torch.equal(one.pose.q, row.pose.q[0])
+          and torch.equal(one.pose.t, row.pose.t[0]),
+          "api: 0-d geometric_verify differs from row 0 of the batch")
+    torch.cuda.synchronize()
+    emit({"phase": "api", "size": f"{gray.shape[1]}x{gray.shape[0]}",
+          "detect_until_equal_detect": same,
+          "gaussian_blur_max_abs": blur_err, "blur_tol": API_BLUR_TOL,
+          "moment_maps_max_abs": mm_err, "moment_maps_cpu_max_abs": mm_err_h,
+          "moment_maps_card_vs_cpu": mm_diff, "moment_scale": mm_scale,
+          "moment_rtol": API_MOMENT_RTOL, "ic_angle_max_rad": ang_err,
+          "angle_tol_rad": API_ANGLE_TOL_RAD, "keypoints": len(yx_h),
+          "brief_bits_differing": bits_diff, "covis_equal": True,
+          "covis_keyframes": int(arena.n_kf),
+          "verify": {"slot": slot, "ok": bool(one.ok),
+                     "n_inliers": int(one.n_inliers)},
+          "launches": dict(total),
+          "seconds": time.perf_counter() - t0})
+    return total
 
 
 def phase_profile(torch, frames, cfg, ms_per_frame: float) -> None:
@@ -2519,6 +2672,7 @@ def main() -> int:
     chunk_odo_launches = phase_chunk_odometry(
         torch, kernels, frames, cfg, odo, ms_per_frame, fast_frames[:16])
     phase_cpu_vs_gpu(torch, frames[:N_CMP_FRAMES], cfg)
+    api_launches = phase_api(torch, kernels, frames[0], cfg, odo)
     phase_profile(torch, frames, cfg, ms_per_frame)
     phase_slam(torch, kernels, frames, poses, cfg, ms_per_frame)
     slam = phase_slam(torch, kernels, fast_frames, fast_poses, cfg,
@@ -2563,7 +2717,8 @@ def main() -> int:
                               "chunk": chunk_launches[k.name],
                               "cli": cli_launches[k.name],
                               "multiseq": multiseq_launches[k.name],
-                              "viewer": viewer_launches[k.name]},
+                              "viewer": viewer_launches[k.name],
+                              "api": api_launches[k.name]},
          **{key: timing[k.name][key] for key in keys}}
         for k in kernels.KERNELS.values()]})
 

@@ -32,3 +32,16 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from modular_slam_tpu_torch.config import (  # noqa: E402,F401
+    CameraConfig,
+    DetectorConfig,
+    MatcherConfig,
+    PnpConfig,
+    TrackerConfig,
+    MapConfig,
+    BackendConfig,
+    LoopConfig,
+    SlamConfig,
+    tum_camera_config,
+)

@@ -147,6 +147,9 @@ def quat_from_axis_angle(axis_angle: Tensor) -> Tensor:
     return quat_normalize(torch.cat([w, k * axis_angle], dim=-1))
 
 
+so3_exp = quat_from_axis_angle
+
+
 def so3_log(q: Tensor) -> Tensor:
     """Quaternion -> so(3) vector (axis * angle).  The double-where keeps
     the value and its forward-mode derivative finite at the identity,

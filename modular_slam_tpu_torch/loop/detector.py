@@ -15,9 +15,10 @@ Pallas matcher takes the batch as a grid dimension.  Here
 `geometric_verify` takes all candidates at once: one launch of kernel K2
 and one of its merge on a CUDA arena, comparing the same queries with the
 same landmark rows under one mask per candidate, with no copy of the rows.
-Dedupe and RANSAC-PnP then run per candidate.  The RANSAC draws come from
-a `sampler(valid, n_hyp)` argument, as in the tracker (ops/pnp.py), in
-place of the JAX key.
+Dedupe and RANSAC-PnP then run per candidate; a 0-d slot, as the JAX
+function takes it, is verified as a batch of one.  The RANSAC draws come
+from a `sampler(valid, n_hyp)` argument, as in the tracker (ops/pnp.py),
+in place of the JAX key.
 """
 
 from __future__ import annotations
@@ -98,6 +99,13 @@ def query_candidates(
     return top[:top_k], order[:top_k]
 
 
+class LoopVerification(NamedTuple):
+    ok: Tensor          # bool — geometric verification passed
+    n_inliers: Tensor   # int32
+    pose: Pose          # Pose of the *query camera* implied by the
+    # candidate's landmarks (world frame)
+
+
 def geometric_verify(
     arena: MapArena,
     cand_kf: Tensor,
@@ -105,10 +113,16 @@ def geometric_verify(
     cam: Camera,
     cfg: SlamConfig,
     sampler: Sampler,
-) -> Tuple[Tensor, Tensor, Pose]:
+) -> LoopVerification:
     """Match the query features against each candidate keyframe's landmarks
     and solve the query pose from them.  cand_kf [B] keyframe slots ->
-    (ok [B], n_inliers [B], query poses [B])."""
+    (ok [B], n_inliers [B], query poses [B]); a 0-d slot -> 0-d ok and
+    n_inliers and one pose."""
+    if cand_kf.dim() == 0:
+        ok, n_inliers, pose = geometric_verify(arena, cand_kf[None], feats,
+                                               cam, cfg, sampler)
+        return LoopVerification(ok[0], n_inliers[0],
+                                Pose(q=pose.q[0], t=pose.t[0]))
     kps = feats.keypoints
     cand = cand_kf.long()
     lm_mask = arena.inc[cand] & arena.lm_valid                 # [B, L]
@@ -129,8 +143,8 @@ def geometric_verify(
         inls.append(pnp.n_inliers)
         qs.append(pnp.pose.q)
         ts.append(pnp.pose.t)
-    return (torch.stack(oks), torch.stack(inls),
-            Pose(q=torch.stack(qs), t=torch.stack(ts)))
+    return LoopVerification(torch.stack(oks), torch.stack(inls),
+                            Pose(q=torch.stack(qs), t=torch.stack(ts)))
 
 
 def relative_pose(pose_from: Pose, pose_to: Pose) -> Pose:

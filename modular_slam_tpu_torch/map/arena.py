@@ -208,6 +208,15 @@ def add_observations(arena: MapArena, kf_slot: Tensor, lm_slots: Tensor,
 # ---------------------------------------------------------------------------
 
 
+def covis_counts(arena: MapArena) -> Tensor:
+    """[K, K] int32 shared-landmark counts (diagonal = own landmark
+    count): one float32 product inc @ inc.T.  Exact: 0/1 products
+    accumulate exactly in float32 up to 2^24 landmarks, and TF32 is off
+    (see the package docstring)."""
+    m = arena.inc.to(torch.float32)
+    return torch.matmul(m, m.T).to(torch.int32)
+
+
 def khop_keyframes(arena: MapArena, kf_slot: Tensor, depth: int) -> Tensor:
     """[K] bool — keyframes within `depth` covisibility hops of kf_slot
     (inclusive).  One hop is "landmarks seen by the visited set, then
@@ -229,3 +238,17 @@ def visible_landmarks(arena: MapArena, kf_mask: Tensor) -> Tensor:
     """[L] bool — landmarks observed by any keyframe in kf_mask."""
     hits = torch.any(arena.inc & kf_mask[:, None], dim=0)
     return hits & arena.lm_valid
+
+
+def apply_backend_update(arena: MapArena, kf_q: Tensor, kf_t: Tensor,
+                         lm_pos: Tensor, kf_mask: Tensor,
+                         lm_mask: Tensor) -> MapArena:
+    """Write BA-optimized poses/positions back where the masks are set
+    (the reference's missing BasicMap::update(BackendOutput),
+    basic_map.cpp:41-44 TODO).  Returns a new arena; the old one's
+    tensors are not written."""
+    return arena._replace(
+        kf_q=torch.where(kf_mask[:, None], kf_q, arena.kf_q),
+        kf_t=torch.where(kf_mask[:, None], kf_t, arena.kf_t),
+        lm_pos=torch.where(lm_mask[:, None], lm_pos, arena.lm_pos),
+    )

@@ -1,10 +1,16 @@
-"""Separable Gaussian blur of keypoint patches (counterpart of
-modular_slam_tpu/ops/blur.py: `gaussian_kernel_1d`, `blur_patches`)."""
+"""Separable Gaussian blur (counterpart of modular_slam_tpu/ops/blur.py):
+`blur_patches` for the detector's keypoint patches, `gaussian_blur` for a
+whole image.
+
+Reference: 7x7 sigma=2 GaussianBlur with BORDER_REFLECT_101 before BRIEF
+description (distributed_cv_feature.cpp:797-798).
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from modular_slam_tpu_torch.utils.device import constant
 
@@ -38,3 +44,23 @@ def blur_patches(patches: Tensor, ksize: int = 7,
                  lambda: _band(P, ksize, sigma), patches.device)
     hp = torch.einsum("nyi,ij->nyj", patches, B)      # [N, P, Q]
     return torch.einsum("niw,ij->njw", hp, B)         # [N, Q, Q]
+
+
+def reflect_pad(img: Tensor, r: int) -> Tensor:
+    """[H, W] -> [H + 2r, W + 2r], reflect-101 (the edge pixel not
+    repeated): numpy's and `jnp.pad`'s "reflect"."""
+    return F.pad(img[None, None], (r, r, r, r), mode="reflect")[0, 0]
+
+
+def gaussian_blur(img: Tensor, ksize: int = 7, sigma: float = 2.0) -> Tensor:
+    """[H, W] float32 -> blurred [H, W]; reflect-101 borders like OpenCV.
+
+    The JAX package's shifted multiply-adds in the same order, row pass
+    then column pass (not `conv2d`, whose summation order differs and
+    which reaches cuDNN on the card)."""
+    k = gaussian_kernel_1d(ksize, sigma)
+    r = ksize // 2
+    h, w = img.shape
+    padded = reflect_pad(img, r)
+    tmp = sum(float(k[i]) * padded[:, i:i + w] for i in range(ksize))
+    return sum(float(k[i]) * tmp[i:i + h, :] for i in range(ksize))

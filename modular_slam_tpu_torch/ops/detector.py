@@ -6,6 +6,7 @@ launch) -> 3x3 NMS,
 border mask, low threshold -> per-cell threshold fallback -> per-cell
 top-1 -> global top-k -> 43x43 raw patch per keypoint -> IC orientation
 -> patch blur -> angle-binned BRIEF-256 -> level-0 coords + depth.
+`detect_until` stops after a stage and returns its raw tensors.
 
 Tie order follows `lax.top_k`, which prefers the lower index: the per-cell
 top-1 is `argmax` (first maximum) and the global top-k a stable
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from modular_slam_tpu_torch.config import DetectorConfig
-from modular_slam_tpu_torch.ops.blur import blur_patches
+from modular_slam_tpu_torch.ops.blur import blur_patches, reflect_pad
 from modular_slam_tpu_torch.ops.brief import (BRIEF_PATCH, brief_from_patches,
                                               extract_patches)
 from modular_slam_tpu_torch.ops.fast import (border_mask, fast_score_levels,
@@ -79,17 +80,15 @@ def _pad_to(img: Tensor, h: int, w: int) -> Tensor:
     return F.pad(img, (0, w - img.shape[1], 0, h - img.shape[0]))
 
 
-def _reflect_pad(img: Tensor, r: int) -> Tensor:
-    """Reflect-101 padding (the edge pixel not repeated), numpy 'reflect'."""
-    return F.pad(img[None, None], (r, r, r, r), mode="reflect")[0, 0]
+CUTS = ("select", "atlas", "orient", "brief", "full")
 
 
-def detect(gray: Tensor, depth: Tensor, cfg: DetectorConfig) -> Features:
-    """Detect up to cfg.max_keypoints ORB features.
-
-    gray:  [H, W] float32 luma
-    depth: [H, W] float32 meters (0 invalid) — sampled per keypoint
-    """
+def _detect_impl(gray: Tensor, depth: Tensor, cfg: DetectorConfig, cut: str):
+    """The detect body, stopped after the stage `cut` names (one of
+    CUTS): "full" gives the Features, the others a tuple of raw tensors,
+    as the JAX package's `_detect_impl`."""
+    if cut not in CUTS:
+        raise ValueError(f"detect: cut must be one of {CUTS}, got {cut!r}")
     H0, W0 = gray.shape
     dev = gray.device
     levels = build_pyramid(gray, cfg)
@@ -129,20 +128,28 @@ def detect(gray: Tensor, depth: Tensor, cfg: DetectorConfig) -> Features:
     valid = sel_resp > 0.0
     yx_sel = yx_c[sel]
     lvl_sel = lvls[sel]
+    if cut == "select":
+        return yx_sel, lvl_sel, sel_resp
 
     # --- one raw (BRIEF 37 + blur halo 2*3 = 43)-wide patch per keypoint,
     # from levels reflect-padded by the blur radius ------------------------
     br = cfg.blur_ksize // 2
     atlas = torch.stack([
-        _pad_to(_reflect_pad(img, br), H0 + 2 * br, W0 + 2 * br)
+        _pad_to(reflect_pad(img, br), H0 + 2 * br, W0 + 2 * br)
         for img in levels])                          # [nlev, H0+6, W0+6]
+    if cut == "atlas":
+        return yx_sel, lvl_sel, sel_resp, atlas
     P = BRIEF_PATCH + 2 * br                         # 43
     patches = extract_patches(atlas, lvl_sel, yx_sel + br, patch=P)
     p2d = patches.reshape(-1, P, P)
 
     angles = ic_angle_from_patches(p2d)
+    if cut == "orient":
+        return yx_sel, lvl_sel, sel_resp, angles
     bp = blur_patches(p2d, cfg.blur_ksize, cfg.blur_sigma)  # [N, 37, 37]
     bits = brief_from_patches(bp.reshape(bp.shape[0], -1), angles)
+    if cut == "brief":
+        return yx_sel, lvl_sel, sel_resp, angles, bits
 
     # --- level-0 coords + depth -------------------------------------------
     scales = constant(
@@ -166,3 +173,25 @@ def detect(gray: Tensor, depth: Tensor, cfg: DetectorConfig) -> Features:
     )
     desc = Descriptors(packed=pack_bits(bits), unpacked=bits_to_pm1(bits))
     return Features(keypoints=kps, descriptors=desc)
+
+
+def detect_until(gray: Tensor, depth: Tensor, cfg: DetectorConfig, cut: str):
+    """Run detect up to `cut` and return raw tensors: (yx, level,
+    response) of the selected keypoints in level coords for "select",
+    then the raw reflect-padded pyramid atlas for "atlas", the IC angles
+    for "orient", angles and descriptor bits for "brief"; for "full"
+    (uv, angle, depth, descriptors as ±1)."""
+    out = _detect_impl(gray, depth, cfg, cut)
+    if cut == "full":
+        return (out.keypoints.uv, out.keypoints.angle, out.keypoints.depth,
+                out.descriptors.unpacked)
+    return out
+
+
+def detect(gray: Tensor, depth: Tensor, cfg: DetectorConfig) -> Features:
+    """Detect up to cfg.max_keypoints ORB features.
+
+    gray:  [H, W] float32 luma
+    depth: [H, W] float32 meters (0 invalid) — sampled per keypoint
+    """
+    return _detect_impl(gray, depth, cfg, "full")

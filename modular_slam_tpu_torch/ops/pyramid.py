@@ -32,6 +32,10 @@ def pyramid_shapes(h: int, w: int,
     return shapes
 
 
+def level_scale(cfg: DetectorConfig, level: int) -> float:
+    return cfg.scale_factor ** level
+
+
 def build_pyramid(gray: Tensor, cfg: DetectorConfig) -> List[Tensor]:
     """gray [H, W] float32 -> list of n_levels tensors, resize-chained."""
     h, w = gray.shape

@@ -1,6 +1,7 @@
 """The port's map arena (modular_slam_tpu_torch/map/arena.py) against the
 JAX package: every insertion, including the drop-on-overflow policy and
-the saturating counters, and the covisibility queries — all exact."""
+the saturating counters, the covisibility queries and counts, and the
+masked write-back of BA results — all exact."""
 
 import numpy as np
 import pytest
@@ -163,3 +164,60 @@ def test_gated_insertions(enable, n):
         assert int(tkf) == int(jkf)
         np.testing.assert_array_equal(tslots.numpy(), np.asarray(jslots))
         _assert_arena_equal(tarena, jarena)
+
+
+def _covis_scene():
+    """The JAX package's covisibility scene (tests/test_map.py): kf0 sees
+    landmarks {0, 1}, kf1 {1, 2}, kf2 {2, 3}, kf3 {5} (isolated), built
+    with the JAX inserts; -> (JAX arena, port arena)."""
+    cfg = MapConfig(max_keyframes=8, max_landmarks=32, max_observations=64,
+                    descriptor_bits=256)
+    rng = np.random.default_rng(0)
+
+    def desc(n):
+        return jnp.asarray((rng.integers(0, 2, (n, 256)) * 2 - 1)
+                           .astype(np.int8))
+
+    a = ja.empty_arena(cfg)
+    a, _ = ja.add_landmarks(a, jnp.zeros((6, 3)), desc(6), jnp.ones(6, bool))
+    for kf, lms in [(0, [0, 1]), (1, [1, 2]), (2, [2, 3]), (3, [5, 0])]:
+        a, slot = ja.add_keyframe(a, JPose(jnp.array([1.0, 0, 0, 0]),
+                                           jnp.array([float(kf), 0, 0])),
+                                  jnp.float32(kf))
+        a = ja.add_observations(a, slot, jnp.array(lms, jnp.int32),
+                                jnp.zeros((2, 2)), jnp.ones(2), desc(2),
+                                jnp.array([True, kf != 3]))
+    return a, arena_from_numpy(ja.MapArena(*(np.asarray(x) for x in a)))
+
+
+def test_covis_counts_match_jax():
+    jarena, tarena = _covis_scene()
+    got = ta.covis_counts(tarena)
+    ref = np.asarray(ja.covis_counts(jarena))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert ref[0, 1] == 1 and ref[1, 2] == 1 and ref[0, 2] == 0
+    assert ref[3, 3] == 1 and ref[3, :3].sum() == 0
+    for seed in range(2):
+        jarena, tarena = _random_arena(seed)
+        np.testing.assert_array_equal(ta.covis_counts(tarena).numpy(),
+                                      np.asarray(ja.covis_counts(jarena)))
+
+
+def test_apply_backend_update_matches_jax():
+    jarena, tarena = _covis_scene()
+    rng = np.random.default_rng(1)
+    K, L = tarena.max_keyframes, tarena.max_landmarks
+    kf_q = rng.normal(size=(K, 4)).astype(np.float32)
+    kf_t = rng.normal(size=(K, 3)).astype(np.float32)
+    lm_pos = rng.normal(size=(L, 3)).astype(np.float32)
+    kf_mask = rng.random(K) > 0.5
+    lm_mask = rng.random(L) > 0.5
+    before = [x.clone() for x in tarena]
+    got = ta.apply_backend_update(tarena, *map(torch.from_numpy, (
+        kf_q, kf_t, lm_pos, kf_mask, lm_mask)))
+    ref = ja.apply_backend_update(jarena, *map(jnp.asarray, (
+        kf_q, kf_t, lm_pos, kf_mask, lm_mask)))
+    _assert_arena_equal(got, ref)
+    for x, y in zip(tarena, before):      # the old arena is not written
+        assert torch.equal(x, y)

@@ -12,8 +12,18 @@ End to end, `detect` on a rendered frame gives the same valid keypoints
 (scores within 1e-3), and descriptors that agree on at least 99.5 % of
 the bits: an ulp in the blur can move a value across a uint8 rounding
 edge.
+
+The image-domain reference functions: `gaussian_blur` within 1e-4 on
+0..255 images, `moment_maps` within 2e-4 of the map's largest moment at
+interior pixels (and, as the JAX test holds it, within rtol 2e-4 of the
+patch oracle at its four pixels), `ic_angle` within 3e-4 rad, and
+`rotated_offsets`, `brief_descriptors`, `brief_from_atlas` and
+`brief_matmul` bit-equal.  `detect_until` at each cut: the selection
+exact, the atlas within 1e-3, angles within 3e-4 rad and bits equal on
+the valid rows.
 """
 
+import cv2
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -208,3 +218,187 @@ def test_detect_on_rendered_frame():
     assert (bits == bits_ref).mean() >= 0.995
     packed = got.descriptors.packed.numpy()[v]
     assert packed.dtype == np.int32
+
+
+def _blurred_noise(h, w, seed):
+    img = np.random.default_rng(seed).integers(0, 256, (h, w))
+    return cv2.GaussianBlur(img.astype(np.float32), (5, 5), 1.0)
+
+
+@pytest.mark.parametrize("hw", [(64, 80), (61, 83)])
+def test_gaussian_blur_matches_jax(hw):
+    img = _blurred_noise(*hw, seed=hw[1])
+    got = tblur.gaussian_blur(torch.from_numpy(img), 7, 2.0).numpy()
+    ref = np.asarray(jblur.gaussian_blur(jnp.asarray(img), 7, 2.0))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got, cv2.GaussianBlur(
+        img, (7, 7), 2.0, borderType=cv2.BORDER_REFLECT_101), atol=1e-2)
+
+
+def test_moment_maps_and_ic_angle_match_jax():
+    r = torient.IC_RADIUS
+    rng = np.random.default_rng(3)
+    img = rng.uniform(0, 255, (96, 128)).astype(np.float32)
+    mm = torient.moment_maps(torch.from_numpy(img)).numpy()
+    ref = np.asarray(jax.jit(jorient.moment_maps)(jnp.asarray(img)))
+    assert mm.shape == (2, 96, 128)
+    # the rolls' wrap fringe (radius + 1 pixels) holds no moment
+    inner = (slice(None), slice(r + 1, -r - 1), slice(r + 1, -r - 1))
+    scale = np.abs(ref[inner]).max()
+    np.testing.assert_allclose(mm[inner], ref[inner], rtol=0,
+                               atol=2e-4 * scale)
+    mask = torient._mask_np(r)
+    np.testing.assert_array_equal(mask, jorient._mask_np(r))
+    coords = np.arange(-r, r + 1, dtype=np.float32)
+    for (y, x) in [(20, 20), (48, 64), (70, 100), (19, 108)]:
+        patch = img[y - r:y + r + 1, x - r:x + r + 1] * mask
+        np.testing.assert_allclose(mm[0, y, x],
+                                   float((patch * coords[None, :]).sum()),
+                                   rtol=2e-4)
+        np.testing.assert_allclose(mm[1, y, x],
+                                   float((patch * coords[:, None]).sum()),
+                                   rtol=2e-4)
+
+    yx = np.stack([rng.integers(r, 96 - r, 200), rng.integers(r, 128 - r,
+                                                             200)], -1)
+    yx = yx.astype(np.int32)
+    ang = torient.ic_angle(torch.from_numpy(img), torch.from_numpy(yx))
+    ang_ref = np.asarray(jorient.ic_angle(jnp.asarray(img), jnp.asarray(yx)))
+    np.testing.assert_allclose(ang.numpy(), ang_ref, rtol=0, atol=3e-4)
+    # starts clamp to the image, as the JAX gather's
+    edge = np.array([[0, 0], [95, 127], [3, 120]], np.int32)
+    np.testing.assert_array_equal(
+        torient.gather_patches(torch.from_numpy(img),
+                               torch.from_numpy(edge), 31).numpy(),
+        np.asarray(jorient.gather_patches(jnp.asarray(img),
+                                          jnp.asarray(edge), 31)))
+
+
+def _smooth_atlas(rng):
+    """A smooth [3, 120, 156] atlas (blurred-image statistics), as the JAX
+    package's test of `brief_matmul` builds it."""
+    import scipy.ndimage as ndi
+
+    base = rng.uniform(0, 255, (3, 40, 52))
+    atlas = np.stack([ndi.zoom(b, 3.0, order=1) for b in base])
+    return atlas[:, :120, :156].astype(np.float32)
+
+
+def test_continuous_rotation_brief_matches_jax():
+    rng = np.random.default_rng(11)
+    ang = rng.uniform(-np.pi, np.pi, 96).astype(np.float32)
+    for got, ref in zip(tbrief.rotated_offsets(torch.from_numpy(ang)),
+                        jbrief.rotated_offsets(jnp.asarray(ang))):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    atlas = _smooth_atlas(rng)
+    yx = np.stack([rng.integers(20, 100, 96), rng.integers(20, 136, 96)],
+                  -1).astype(np.int32)
+    lvl = rng.integers(0, 3, 96).astype(np.int32)
+    bits = tbrief.brief_from_atlas(*map(torch.from_numpy,
+                                        (atlas, lvl, yx, ang)))
+    ref = jbrief.brief_from_atlas(*map(jnp.asarray, (atlas, lvl, yx, ang)))
+    assert bits.dtype == torch.uint8
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(ref))
+    one = tbrief.brief_descriptors(torch.from_numpy(atlas[1]),
+                                   torch.from_numpy(yx),
+                                   torch.from_numpy(ang))
+    np.testing.assert_array_equal(one.numpy(), np.asarray(
+        jbrief.brief_descriptors(jnp.asarray(atlas[1]), jnp.asarray(yx),
+                                 jnp.asarray(ang))))
+
+
+def test_brief_matmul_matches_gather_oracle():
+    """The JAX package's test through the port: the binned BRIEF is
+    bit-exact against the continuous gather on the rounded atlas at
+    bin-centre angles, and close to it elsewhere; and equal to the JAX
+    `brief_matmul`."""
+    rng = np.random.default_rng(7)
+    atlas = _smooth_atlas(rng)
+    N = 96
+    yx = np.stack([rng.integers(20, 100, N), rng.integers(20, 136, N)],
+                  -1).astype(np.int32)
+    lvl = rng.integers(0, 3, N).astype(np.int32)
+    b = rng.integers(0, tbrief.N_ANGLE_BINS, N)
+    ang = (2 * np.pi * b / tbrief.N_ANGLE_BINS).astype(np.float32)
+    t_atlas, t_lvl, t_yx = map(torch.from_numpy, (atlas, lvl, yx))
+    bits_g = tbrief.brief_from_atlas(torch.round(t_atlas), t_lvl, t_yx,
+                                     torch.from_numpy(ang)).numpy()
+    bits_m = tbrief.brief_matmul(t_atlas, t_lvl, t_yx,
+                                 torch.from_numpy(ang)).numpy()
+    assert (bits_g == bits_m).all(), int((bits_g != bits_m).sum())
+    ang2 = rng.uniform(-np.pi, np.pi, N).astype(np.float32)
+    bg = tbrief.brief_from_atlas(torch.round(t_atlas), t_lvl, t_yx,
+                                 torch.from_numpy(ang2)).numpy()
+    bm = tbrief.brief_matmul(t_atlas, t_lvl, t_yx,
+                             torch.from_numpy(ang2)).numpy()
+    assert (bg != bm).sum(1).mean() < 40
+    ref = jbrief.brief_matmul(*map(jnp.asarray, (atlas, lvl, yx, ang2)))
+    np.testing.assert_array_equal(bm, np.asarray(ref))
+
+
+def test_descriptor_rotation_invariance():
+    """The JAX package's rotation check through the port: rotating the
+    image 30 degrees changes fewer than 60 of a strong corner's 256 bits
+    (steered BRIEF + IC angle)."""
+    rng = np.random.default_rng(3)
+    img = np.full((240, 240), 128.0, np.float32)
+    for y, x in zip(rng.integers(20, 220, 120), rng.integers(20, 220, 120)):
+        sz = int(rng.integers(2, 6))
+        img[y:y + sz, x:x + sz] = float(rng.uniform(0, 255))
+    img = cv2.GaussianBlur(img, (3, 3), 0.8)
+    M = cv2.getRotationMatrix2D((120, 120), 30.0, 1.0)
+    rot = cv2.warpAffine(img, M, (240, 240), flags=cv2.INTER_LINEAR,
+                         borderValue=128.0)
+    s = (fast_score(torch.from_numpy(img))
+         * border_mask(240, 240, 40)).numpy()
+    y, x = np.unravel_index(s.argmax(), s.shape)
+    xr, yr = (int(round(c)) for c in M @ np.array([x, y, 1.0]))
+
+    def desc_at(image, yy, xx):
+        t = torch.from_numpy(image)
+        yx = torch.tensor([[yy, xx]], dtype=torch.int32)
+        return tbrief.brief_descriptors(tblur.gaussian_blur(t, 7, 2.0), yx,
+                                        torient.ic_angle(t, yx))[0]
+
+    hamming = int((desc_at(img, y, x) != desc_at(rot, yr, xr)).sum())
+    assert hamming < 60, f"rotation changed {hamming}/256 bits"
+
+
+@pytest.mark.parametrize("cut", tdet.CUTS)
+def test_detect_until_matches_jax(cut):
+    cfg = tiny_test_config()
+    rgb, depth = _frame(cfg)
+    gray = rgb_to_luma(torch.from_numpy(rgb))
+    got = tdet.detect_until(gray, torch.from_numpy(depth), cfg.detector, cut)
+    ref = jax.jit(lambda g, d: jdet.detect_until(g, d, cfg.detector, cut))(
+        jnp.asarray(gray.numpy()), jnp.asarray(depth))
+    got = [x.numpy() for x in got]
+    ref = [np.asarray(x) for x in ref]
+    assert [x.shape for x in got] == [x.shape for x in ref]
+    if cut == "full":
+        v = tdet.detect_until(gray, torch.from_numpy(depth), cfg.detector,
+                              "select")[2].numpy() > 0
+        uv, ang, dep, pm1 = got
+        np.testing.assert_array_equal(uv[v], ref[0][v])
+        np.testing.assert_array_equal(dep[v], ref[2][v])
+        np.testing.assert_allclose(ang[v], ref[1][v], rtol=0, atol=3e-4)
+        np.testing.assert_array_equal(pm1[v], ref[3][v])
+        return
+    yx, lvl, resp = got[:3]
+    np.testing.assert_array_equal(yx, ref[0])
+    np.testing.assert_array_equal(lvl, ref[1])
+    v = resp > 0
+    assert v.sum() > 10
+    np.testing.assert_array_equal(v, ref[2] > 0)
+    np.testing.assert_allclose(resp, ref[2], rtol=0, atol=1e-3)
+    if cut == "atlas":
+        np.testing.assert_allclose(got[3], ref[3], rtol=0, atol=1e-3)
+    if cut in ("orient", "brief"):
+        np.testing.assert_allclose(got[3][v], ref[3][v], rtol=0, atol=3e-4)
+    if cut == "brief":
+        step = np.float32(2 * np.pi / tbrief.N_ANGLE_BINS)
+        same_bin = (np.round(got[3][v] / step) == np.round(ref[3][v] / step))
+        assert same_bin.all()
+        np.testing.assert_array_equal(got[4][v][same_bin],
+                                      ref[4][v][same_bin])

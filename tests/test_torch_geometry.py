@@ -59,6 +59,16 @@ def test_matrix_to_quat_all_shepperd_branches():
            jse3.matrix_to_quat(jnp.asarray(R)))
 
 
+def test_so3_exp_matches_jax():
+    """`so3_exp` is the axis-angle map, in both packages, exact at 0."""
+    assert tse3.so3_exp is tse3.quat_from_axis_angle
+    aa = np.random.default_rng(4).normal(size=(16, 3)).astype(np.float32)
+    aa[0] = 0.0
+    got = tse3.so3_exp(torch.from_numpy(aa))
+    _close(got, jse3.so3_exp(jnp.asarray(aa)))
+    np.testing.assert_array_equal(got[0].numpy(), [1.0, 0.0, 0.0, 0.0])
+
+
 def test_se3_exp_exact_at_zero_and_close_elsewhere():
     p = tse3.se3_exp(torch.zeros(6))
     assert torch.equal(p.q, torch.tensor([1.0, 0.0, 0.0, 0.0]))

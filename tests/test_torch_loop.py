@@ -278,6 +278,38 @@ def test_geometric_verify_batch_matches_vmap(scene):
     np.testing.assert_allclose(tpose.t[0].numpy(), true_t, atol=1e-2)
 
 
+@pytest.mark.parametrize("slot", [0, 1])
+def test_geometric_verify_one_candidate_matches_jax(scene, slot):
+    """A 0-d candidate slot, as the JAX function takes it: 0-d ok and
+    inlier count and one pose, equal to JAX's on the same RANSAC draws,
+    and to row 0 of the port's [1]-batched call."""
+    from modular_slam_tpu_torch.geometry.camera import camera_from_config
+
+    cfg, cam, arena, _, feats, tarena, tfeats, _ = scene
+    key = jax.random.PRNGKey(5)
+    jok, jinl, jpose = jax.jit(lambda a, c, f, k: jdet.geometric_verify(
+        a, c, f, cam, cfg, k))(arena, jnp.int32(slot), feats, key)
+    tcam = camera_from_config(cfg.camera)
+    got = tdet.geometric_verify(tarena, torch.tensor(slot), tfeats, tcam,
+                                cfg, KeyReplay([key]))
+    assert isinstance(got, tdet.LoopVerification)
+    assert got.ok.dim() == 0 and got.n_inliers.dim() == 0
+    assert tuple(got.pose.q.shape) == (4,) and tuple(got.pose.t.shape) == (3,)
+    assert bool(got.ok) == bool(jok) == (slot == 0)
+    assert int(got.n_inliers) == int(jinl)
+    if slot == 0:
+        for f in ("q", "t"):
+            np.testing.assert_allclose(getattr(got.pose, f).numpy(),
+                                       np.asarray(getattr(jpose, f)),
+                                       rtol=0, atol=POSE_TOL)
+    row = tdet.geometric_verify(tarena, torch.tensor([slot]), tfeats, tcam,
+                                cfg, KeyReplay([key]))
+    assert bool(row.ok[0]) == bool(got.ok)
+    assert int(row.n_inliers[0]) == int(got.n_inliers)
+    assert torch.equal(row.pose.q[0], got.pose.q)
+    assert torch.equal(row.pose.t[0], got.pose.t)
+
+
 def test_relocalizer_matches_jax(scene):
     from modular_slam_tpu.loop.relocalizer import make_relocalizer as jmake
     from modular_slam_tpu_torch.loop.relocalizer import \

@@ -6,8 +6,11 @@ map compaction in a 2-keyframe pool) on the CPU; run the command-line
 runner on data/sample, saving a checkpoint and resuming from it, and
 write a dataset; track two sequences batched and evaluate data/sample;
 run the viewer, its overlay and server, and the three sharded bundle
-adjustments in a one-rank gloo world; `chip_smoke.py` imports too, and
-without a card exits non-zero."""
+adjustments in a one-rank gloo world; call the reference ORB functions,
+`detect_until` at each cut, `covis_counts`, `apply_backend_update` and a
+one-candidate `geometric_verify`; `chip_smoke.py` imports too, and
+without a card exits non-zero.  A bare `import modular_slam_tpu_torch`
+gives the configs and imports no op."""
 
 import os
 import subprocess
@@ -19,6 +22,11 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SCRIPT = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None          # any `import jax` now fails
+    import modular_slam_tpu_torch as port
+    assert port.SlamConfig().detector == port.DetectorConfig()
+    assert port.tum_camera_config().width == 640
+    assert not [m for m in sys.modules if m.startswith(
+        "modular_slam_tpu_torch.ops")]
     from modular_slam_tpu_torch.config import MapConfig, tiny_test_config
     from modular_slam_tpu_torch.engine import SlamResult, SlamSystem
     from modular_slam_tpu_torch.eval.synthetic import PlaneSceneGenerator
@@ -110,6 +118,45 @@ SCRIPT = textwrap.dedent("""
               "parallel.kf_sharded_ba", "parallel.halo_ba"):
         assert "modular_slam_tpu_torch." + m in sys.modules, m
     import torch
+    from modular_slam_tpu_torch.geometry import camera_from_config, so3_exp
+    from modular_slam_tpu_torch.io.tum import rgb_to_luma
+    from modular_slam_tpu_torch.loop.detector import (LoopVerification,
+                                                      geometric_verify)
+    from modular_slam_tpu_torch.map import (apply_backend_update,
+                                            covis_counts)
+    from modular_slam_tpu_torch.ops import detect, gaussian_blur
+    from modular_slam_tpu_torch.ops.brief import (brief_descriptors,
+                                                  brief_from_atlas,
+                                                  brief_matmul)
+    from modular_slam_tpu_torch.ops.detector import CUTS, detect_until
+    from modular_slam_tpu_torch.ops.orient import ic_angle, moment_maps
+    from modular_slam_tpu_torch.ops.pnp import MultinomialSampler
+    rgb, depth, _ = next(iter(gen.sequence(poses)))
+    gray, depth = rgb_to_luma(torch.from_numpy(rgb)), torch.from_numpy(depth)
+    outs = {cut: detect_until(gray, depth, cfg.detector, cut) for cut in CUTS}
+    yx, lvl, _, atlas = outs["atlas"]
+    ang = outs["orient"][3]
+    assert torch.equal(outs["full"][1], detect(gray, depth,
+                                               cfg.detector).keypoints.angle)
+    blurred = gaussian_blur(gray)
+    assert moment_maps(gray).shape == (2, *gray.shape)
+    assert ic_angle(gray, yx).shape == ang.shape
+    for bits in (brief_descriptors(blurred, yx, ang),
+                 brief_from_atlas(atlas, lvl, yx + 3, ang),
+                 brief_matmul(atlas, lvl, yx + 3, ang)):
+        assert bits.shape == (cfg.detector.max_keypoints, 256)
+    counts = covis_counts(slam.arena)
+    assert int(counts[0, 0]) == int(slam.arena.inc[0].sum())
+    kf = torch.ones(cfg.map.max_keyframes, dtype=torch.bool)
+    moved = apply_backend_update(slam.arena, slam.arena.kf_q,
+                                 slam.arena.kf_t + 1.0, slam.arena.lm_pos,
+                                 kf, ~slam.arena.lm_valid)
+    assert torch.equal(moved.kf_t, slam.arena.kf_t + 1.0)
+    assert torch.equal(so3_exp(torch.zeros(3)), torch.tensor([1.0, 0, 0, 0]))
+    ver = geometric_verify(slam.arena, torch.tensor(0), slam.last_features,
+                           camera_from_config(cfg.camera), cfg,
+                           MultinomialSampler(0))
+    assert isinstance(ver, LoopVerification) and ver.ok.dim() == 0
     import chip_smoke
     if not torch.cuda.is_available():
         assert chip_smoke.main() == 2      # no card: no result, non-zero
