@@ -47,9 +47,15 @@ Phases, each printing one JSON line:
               2e-4 of the largest interior moment of the exact moments
               (the same sums in float64), none launching a kernel;
               covis_counts of the odometry phase's final map equal to
-              its CPU copy's; and a 0-d
+              its CPU copy's; a 0-d
               geometric_verify equal to row 0 of the [1]-batched call,
-              one K2 and one merge launch each
+              one K2 and one merge launch each; make_relocalizer(cfg)
+              with no vocab (the packaged codebook, loaded onto the
+              card) against a database row of the map's last keyframe,
+              equal to the call given that codebook, one K2 and one merge
+              launch; and brief_from_atlas off the edges of a small
+              atlas (samples that wrap and that fall off both ends) equal
+              to its CPU run bit for bit
   profile     per-stage host and device time, device busy time, idle
               share and top device ops per odometry frame
   slam        the slam preset, make_pipeline("slam", SlamConfig(),
@@ -736,16 +742,24 @@ def phase_cpu_vs_gpu(torch, frames, cfg) -> None:
 def phase_api(torch, kernels, frame, cfg, odo) -> collections.Counter:
     """The public names beyond the engine's path on the card: the staged
     detector against `detect`, the reference ORB functions against their
-    CPU runs, covisibility counts and one-candidate verification on the
-    odometry phase's final map.  -> the launches of its calls."""
+    CPU runs, covisibility counts, one-candidate verification and the
+    relocalizer's packaged codebook on the odometry phase's final map, and
+    BRIEF off the atlas's edges.  -> the launches of its calls."""
     import numpy as np
 
     from modular_slam_tpu_torch.geometry.camera import camera_from_config
     from modular_slam_tpu_torch.io.tum import rgb_to_luma
-    from modular_slam_tpu_torch.loop.detector import geometric_verify
+    from modular_slam_tpu_torch.loop.detector import (add_keyframe_bow,
+                                                      empty_database,
+                                                      geometric_verify)
+    from modular_slam_tpu_torch.loop.relocalizer import make_relocalizer
+    from modular_slam_tpu_torch.loop.vocab import (bow_histogram,
+                                                   load_trained_vocab)
     from modular_slam_tpu_torch.map import covis_counts
     from modular_slam_tpu_torch.ops import detect, gaussian_blur
-    from modular_slam_tpu_torch.ops.brief import brief_descriptors
+    from modular_slam_tpu_torch.ops.brief import (brief_descriptors,
+                                                  brief_from_atlas,
+                                                  rotated_offsets)
     from modular_slam_tpu_torch.ops.detector import CUTS, detect_until
     from modular_slam_tpu_torch.ops.orient import (IC_RADIUS, ic_angle,
                                                    moment_maps)
@@ -854,6 +868,63 @@ def phase_api(torch, kernels, frame, cfg, odo) -> collections.Counter:
           and torch.equal(one.pose.q, row.pose.q[0])
           and torch.equal(one.pose.t, row.pose.t[0]),
           "api: 0-d geometric_verify differs from row 0 of the batch")
+
+    # the relocalizer with JAX's default vocab: the packaged codebook,
+    # loaded onto the card; the database holds the last frame's histogram
+    # at the map's last keyframe
+    reloc = counted(lambda: make_relocalizer(cfg), none, "make_relocalizer")
+    packaged = torch.from_numpy(load_trained_vocab(cfg.loop.vocab_size))
+    vocab_equal = (reloc.vocab.device.type == "cuda"
+                   and torch.equal(reloc.vocab.cpu(), packaged))
+    check(vocab_equal, "api: make_relocalizer(cfg) did not load the "
+                       "packaged codebook onto the card")
+    feats_last = odo.last_features
+    db = add_keyframe_bow(
+        empty_database(cfg.map.max_keyframes, cfg.loop.vocab_size,
+                       device="cuda"), slot,
+        bow_histogram(feats_last.descriptors.unpacked,
+                      feats_last.keypoints.valid, reloc.vocab))
+    got = counted(lambda: reloc(arena, db, feats_last, MultinomialSampler(0)),
+                  k2, "relocalizer (packaged vocab)")
+    ref = make_relocalizer(cfg, packaged.cuda())(arena, db, feats_last,
+                                                 MultinomialSampler(0))
+    reloc_equal = (all(torch.equal(a, b) for a, b in
+                       zip((got[0], got[2], got[3]), (ref[0], ref[2], ref[3])))
+                   and torch.equal(got[1].q, ref[1].q)
+                   and torch.equal(got[1].t, ref[1].t))
+    check(reloc_equal, "api: make_relocalizer(cfg) differs from the call "
+                       "given the packaged codebook")
+
+    # brief_from_atlas off a small atlas's edges: flat sample indices in
+    # [-n, 0) wrap, those below -n or at n and above give bit 0 (JAX's
+    # `jnp.take`); the card's bits against the CPU's
+    rng = np.random.default_rng(12)
+    e_atlas = torch.from_numpy(
+        rng.uniform(0, 255, (2, 5, 6)).astype(np.float32))
+    corners = [(0, 0), (0, 5), (4, 0), (4, 5), (2, 3)]
+    e_yx = torch.tensor([c for c in corners for _ in range(2)] * 4,
+                        dtype=torch.int32)
+    e_lvl = torch.arange(2, dtype=torch.int32).repeat_interleave(
+        len(e_yx) // 2)
+    e_ang = torch.from_numpy(
+        rng.uniform(-np.pi, np.pi, len(e_yx)).astype(np.float32))
+    ry1, rx1, ry2, rx2 = rotated_offsets(e_ang)
+    n_flat = e_atlas.numel()
+    _, e_h, e_w = e_atlas.shape
+    idx = torch.cat([(e_lvl.long() * e_h * e_w)[:, None]
+                     + (e_yx[:, :1] + ry) * e_w + e_yx[:, 1:] + rx
+                     for ry, rx in ((ry1, rx1), (ry2, rx2))])
+    edge = {"wrapped": int(((idx >= -n_flat) & (idx < 0)).sum()),
+            "below": int((idx < -n_flat).sum()),
+            "beyond": int((idx >= n_flat).sum())}
+    check(min(edge.values()) > 0, f"api: brief_from_atlas edge case {edge}")
+    e_bits = counted(lambda: brief_from_atlas(
+        e_atlas.cuda(), e_lvl.cuda(), e_yx.cuda(), e_ang.cuda()), none,
+        "brief_from_atlas (edge)").cpu()
+    e_diff = int((e_bits != brief_from_atlas(e_atlas, e_lvl, e_yx,
+                                             e_ang)).sum())
+    check(e_diff == 0, f"api: brief_from_atlas off the atlas, {e_diff} "
+                       f"bits differ from the CPU's")
     torch.cuda.synchronize()
     emit({"phase": "api", "size": f"{gray.shape[1]}x{gray.shape[0]}",
           "detect_until_equal_detect": same,
@@ -866,6 +937,12 @@ def phase_api(torch, kernels, frame, cfg, odo) -> collections.Counter:
           "covis_keyframes": int(arena.n_kf),
           "verify": {"slot": slot, "ok": bool(one.ok),
                      "n_inliers": int(one.n_inliers)},
+          "relocalizer": {"vocab_is_packaged": vocab_equal,
+                          "equal_to_explicit_vocab": reloc_equal,
+                          "ok": bool(got[0]), "kf_slot": int(got[2]),
+                          "n_inliers": int(got[3])},
+          "brief_edge": {**edge, "bits_differing": e_diff,
+                         "ones": int(e_bits.sum())},
           "launches": dict(total),
           "seconds": time.perf_counter() - t0})
     return total
@@ -902,7 +979,8 @@ def phase_profile(torch, frames, cfg, ms_per_frame: float) -> None:
         return out
 
     for rgb, depth, ts in frames[4:4 + n]:
-        fr = timed("upload", lambda: frame_to_device(rgb, depth, ts, "cuda"))
+        fr = timed("upload", lambda: frame_to_device(rgb, depth, ts,
+                                                     device="cuda"))
         feats = timed("detect",
                       lambda: detect(fr.gray, fr.depth, cfg.detector))
         system.arena, system.state, _ = timed("track", lambda: track_frame(

@@ -8,17 +8,26 @@ This package imports `torch` and never `jax`, and nothing of the JAX
 package: `config.py` is a copy of the JAX package's dataclasses, held
 equal to them by a test.
 
-Ported so far: the per-frame odometry path (detect -> Hamming 2-NN ->
-RANSAC-PnP -> map arena), the bundle-adjustment backend (`backend/`), and
-loop closure, pose-graph optimization, relocalization and the map
-lifecycle (`loop/`, `backend/posegraph.py`, `map/lifecycle.py`), i.e. the
-`odometry`, `slam` and `full` presets frame by frame and chunk by chunk;
-and the host side: the component registry (`utils/registry.py`,
-`models/components.py`, `models/builder.py`), runtime parameters,
-checkpoints, the TUM dataset reader and writer (`io/`, `eval/`) and the
-command-line runner (`run.py`).  Both of the JAX
-package's Pallas kernels run here as hand-written CUDA for Hopper
-(`csrc/`); on CPU tensors their plain PyTorch versions run instead.
+Every public name of the JAX package has its counterpart here: the
+per-frame odometry path (detect -> Hamming 2-NN -> RANSAC-PnP -> map
+arena), the bundle-adjustment backend (`backend/`), and loop closure,
+pose-graph optimization, relocalization and the map lifecycle (`loop/`,
+`backend/posegraph.py`, `map/lifecycle.py`), i.e. the `odometry`, `slam`
+and `full` presets frame by frame and chunk by chunk; the host side: the
+component registry (`utils/registry.py`, `models/components.py`,
+`models/builder.py`), runtime parameters, checkpoints, the TUM dataset
+reader and writer (`io/`, `eval/`) and the command-line runner
+(`run.py`); the evaluation driver (`eval/evaluate.py`,
+`eval/report.py`); multi-sequence tracking and the sharded bundle
+adjustments on `torch.distributed` (`parallel/`); the viewer
+(`viewer.py`, `viz/`); and the reference ORB functions, `detect_until`,
+`covis_counts` and the other library functions off the engine's path.
+Calls bind as in the JAX package: JAX's parameters in JAX's positional
+order with JAX's defaults, the port's own (`device`, and `sampler` for
+JAX's PRNG `key`) after them, keyword-only on the entry points.  Both of
+the JAX package's Pallas kernels run here as hand-written CUDA for
+Hopper (`csrc/`); on CPU tensors their plain PyTorch versions run
+instead.
 
 Float32 matrix products and convolutions run in full float32: the JAX
 path asks for `Precision.HIGHEST` (ops/brief.py, ops/blur.py), TF32 would

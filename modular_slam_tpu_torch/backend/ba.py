@@ -76,7 +76,9 @@ class BAStats(NamedTuple):
     n_active_obs: Tensor
     n_outliers: Tensor
     cg_residual: Tensor
-    n_iterations: int    # LM iterations run (not in the JAX BAStats)
+    # LM iterations run (not in the JAX BAStats; its default lets a
+    # JAX-style five-field construction build one)
+    n_iterations: int = 0
 
 
 def _stall_update(stall: Tensor, accept: Tensor, improved: Tensor) -> Tensor:
@@ -529,7 +531,9 @@ class WindowSolution(NamedTuple):
     kf_t: Tensor       # [Kc, 3]
     lm_pos: Tensor     # [Lc, 3]
     bad: Tensor        # [Oc] bool — outlier observations to invalidate
-    stats: BAStats     # of the solve (not in the JAX WindowSolution)
+    # of the solve (not in the JAX WindowSolution; None in a JAX-style
+    # four-field construction)
+    stats: Optional[BAStats] = None
 
 
 def _compact_obs(cam: Camera, arena: MapArena, obs_idx: Tensor,

@@ -71,8 +71,8 @@ def _resolve(cfg: SlamConfig, components):
             None, None)
 
 
-def make_slam_step(cfg: SlamConfig, device="cuda",
-                   components=None) -> Callable:
+def make_slam_step(cfg: SlamConfig, components=None, *,
+                   device="cuda") -> Callable:
     """The per-frame engine step for a static config:
     slam_step(arena, state, gray, depth, time, sampler, bootstrap=None)
         -> (arena, state, result, features).
@@ -88,8 +88,8 @@ def make_slam_step(cfg: SlamConfig, device="cuda",
                   bootstrap: Optional[bool] = None):
         feats = detect_fn(gray, depth)
         arena, state, result = track_frame(
-            arena, state, feats, cam, cfg, time, sampler, bootstrap,
-            match_fn=match_fn, pnp_fn=pnp_fn)
+            arena, state, feats, cam, cfg, time, sampler,
+            match_fn=match_fn, pnp_fn=pnp_fn, bootstrap=bootstrap)
         return arena, state, result, feats
 
     return slam_step
@@ -110,9 +110,9 @@ def _stack_results(results: List[TrackResult]) -> TrackResult:
                      else stack("relocalized")))
 
 
-def make_slam_scan(cfg: SlamConfig, device="cuda", components=None,
-                   with_features=False,
-                   reloc_vocab: Optional[Tensor] = None) -> Callable:
+def make_slam_scan(cfg: SlamConfig, components=None, with_features=False,
+                   reloc_vocab: Optional[Tensor] = None, *,
+                   device="cuda") -> Callable:
     """The chunked step (the JAX `make_slam_scan`), with `components` as
     in `make_slam_step`:
     fn(arena, state, [db,] grays [C,H,W], depths [C,H,W], times [C],
@@ -243,6 +243,8 @@ class SlamSystem:
     """Host-side orchestration: frame feed, trajectory collection, the
     local-BA backend, loop closure, relocalization and map maintenance.
 
+    The positional parameters are the JAX engine's, in its order; the
+    port's own, `device` and `sampler`, are keyword-only.
     `device` (default "cuda"; RuntimeError when there is no CUDA device)
     holds the map arena, the tracking state and every per-frame tensor; on
     "cuda" the FAST and Hamming 2-NN kernels run, on "cpu" their plain
@@ -277,14 +279,14 @@ class SlamSystem:
     bookkeeping; on the deferred chunked path, of chunk N's frames once
     chunk N+1 was launched."""
 
-    def __init__(self, cfg: Optional[SlamConfig] = None, device="cuda",
-                 seed: int = 0, enable_backend: bool = True,
-                 ba_every: int = 1, enable_loop_closure: bool = False,
+    def __init__(self, cfg: Optional[SlamConfig] = None, seed: int = 0,
+                 enable_backend: bool = True, ba_every: int = 1,
+                 enable_loop_closure: bool = False,
                  enable_relocalization: bool = False,
                  component_names: Optional[dict] = None,
                  ba_mode: str = "sync",
-                 sampler: Optional[Sampler] = None,
-                 defer_chunk_sync: bool = False):
+                 defer_chunk_sync: bool = False, *, device="cuda",
+                 sampler: Optional[Sampler] = None):
         self.device = _resolve_device(device)
         self.cfg = cfg or SlamConfig()
         self.cam = camera_from_config(self.cfg.camera, self.device)
@@ -300,7 +302,8 @@ class SlamSystem:
         self._component_names = dict(component_names or {})
         self.components = build_components(self.cfg, self._component_names)
         self.component_names = self.components.names
-        self._step = make_slam_step(self.cfg, self.device, self.components)
+        self._step = make_slam_step(self.cfg, self.components,
+                                    device=self.device)
         # None: not known yet, read from the arena at the next frame
         self._has_map: Optional[bool] = None
         self._scan = None                 # the chunked scan, built lazily
@@ -333,7 +336,7 @@ class SlamSystem:
         if enable_loop_closure or enable_relocalization:
             from modular_slam_tpu_torch.loop.pipeline import LoopPipeline
 
-            self._loop = LoopPipeline(self.cfg, self.device)
+            self._loop = LoopPipeline(self.cfg, device=self.device)
         # runtime parameters: key -> (config section, field, cast)
         self.params = ParameterRegistry()
         self._param_map = {
@@ -367,7 +370,8 @@ class SlamSystem:
                                   **{field: cast(value)})
         self.cfg = dataclasses.replace(self.cfg, **{section: sub})
         self.components = build_components(self.cfg, self._component_names)
-        self._step = make_slam_step(self.cfg, self.device, self.components)
+        self._step = make_slam_step(self.cfg, self.components,
+                                    device=self.device)
         self._scan = None
         if self._backend is not None:
             self._backend.close()
@@ -585,10 +589,10 @@ class SlamSystem:
             vocab = (self._loop._vocab
                      if self.enable_relocalization and self._loop is not None
                      else None)
-            self._scan = make_slam_scan(self.cfg, self.device,
-                                        self.components,
+            self._scan = make_slam_scan(self.cfg, self.components,
                                         with_features=self._loop is not None,
-                                        reloc_vocab=vocab)
+                                        reloc_vocab=vocab,
+                                        device=self.device)
             self._scan_takes_db = vocab is not None
         # merge the solve dispatched during the previous chunk before this
         # chunk's scan reads the arena

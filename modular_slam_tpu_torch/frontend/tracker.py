@@ -44,7 +44,9 @@ class TrackState(NamedTuple):
     ref_kf: Tensor      # int32 reference keyframe slot
     frame_idx: Tensor   # int32 — frames processed
     lost: Tensor        # bool — tracking currently lost
-    since_kf: Tensor    # int32 — frames since the last keyframe insertion
+    # int32 — frames since the last keyframe insertion (None by default,
+    # as in JAX; `initial_state` sets 0)
+    since_kf: Tensor = None
 
 
 def initial_state(device="cpu") -> TrackState:
@@ -191,13 +193,15 @@ def _track(arena: MapArena, state: TrackState, feats: Features, cam: Camera,
 
 def track_frame(arena: MapArena, state: TrackState, feats: Features,
                 cam: Camera, cfg: SlamConfig, time: Tensor, sampler: Sampler,
-                bootstrap: Optional[bool] = None, match_fn=None, pnp_fn=None,
+                match_fn=None, pnp_fn=None, *,
+                bootstrap: Optional[bool] = None,
                 ) -> Tuple[MapArena, TrackState, TrackResult]:
     """One frontend step: bootstrap on the first frame, track afterwards.
     `sampler` draws the RANSAC triplets (ops/pnp.py) and is called once
-    per tracked frame.  `bootstrap` says whether the arena is empty (the
-    JAX step's `arena.n_kf == 0`); when None it is read from the device,
-    and otherwise the step reads nothing back.
+    per tracked frame.  `bootstrap` (keyword-only: the port's own
+    parameter) says whether the arena is empty (the JAX step's
+    `arena.n_kf == 0`); when None it is read from the device, and
+    otherwise the step reads nothing back.
 
     `match_fn` / `pnp_fn` are injected components (models/components.py
     has the contracts); None uses the built-ins."""

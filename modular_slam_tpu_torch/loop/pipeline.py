@@ -129,7 +129,8 @@ def solve_pose_graph(kf_q: Tensor, kf_t: Tensor, kf_valid: Tensor,
 class LoopPipeline:
     """Loop closure and relocalization state: the BoW database, the
     pose-graph edges, the closure log and the cached global-BA tiers, on
-    `device` (default "cuda"; RuntimeError without a CUDA device).
+    `device` (keyword-only; default "cuda"; RuntimeError without a CUDA
+    device).
 
     `profile=True` ends every stage with a device synchronize and records
     its wall ms in `stage_ms` (bow, query, verify: every keyframe; pgo,
@@ -139,7 +140,8 @@ class LoopPipeline:
     verification; `n_verify_dispatches` and `n_reloc_attempts` count the
     batched verifications, one K2 launch each."""
 
-    def __init__(self, cfg: SlamConfig, device="cuda", profile: bool = False):
+    def __init__(self, cfg: SlamConfig, profile: bool = False, *,
+                 device="cuda"):
         self.cfg = cfg
         self.device = _resolve_device(device)
         self.profile = profile
@@ -240,7 +242,7 @@ class LoopPipeline:
                                                         counters)
         if self._gba_pending:
             arena, state = self.maybe_run_pending_gba(arena, state, kf_slot,
-                                                      counters)
+                                                      counters=counters)
         hist = bow_histogram(feats.descriptors.unpacked,
                              feats.keypoints.valid, self._vocab)
         add_keyframe_bow(self.db, kf_slot, hist)
@@ -406,9 +408,13 @@ class LoopPipeline:
         return self._gba_tiers[tier]
 
     def maybe_run_pending_gba(self, arena: MapArena, state: TrackState,
-                              kf_slot: int, counters=None
+                              kf_slot: int, wait: bool = False,
+                              counters=None
                               ) -> Tuple[MapArena, TrackState]:
-        """Run the queued global-BA polish, if any."""
+        """Run the queued global-BA polish, if any.  `wait` is JAX's
+        (there it joins the tier's compile thread); the port compiles
+        nothing in the background, so there is nothing to wait for and the
+        polish always runs at once."""
         if not self._gba_pending:
             return arena, state
         tier, _ = self._tier_for(arena, counters)

@@ -10,7 +10,7 @@ same first one is picked on the device, with no host read.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -20,7 +20,8 @@ from modular_slam_tpu_torch.geometry.se3 import Pose, identity_pose
 from modular_slam_tpu_torch.loop.detector import (LoopDatabase,
                                                   geometric_verify,
                                                   query_candidates)
-from modular_slam_tpu_torch.loop.vocab import bow_histogram
+from modular_slam_tpu_torch.loop.vocab import (bow_histogram,
+                                               load_trained_vocab)
 from modular_slam_tpu_torch.map.arena import MapArena
 from modular_slam_tpu_torch.ops.pnp import Sampler
 from modular_slam_tpu_torch.types import Features
@@ -34,14 +35,31 @@ def _pick(x: Tensor, i: Tensor) -> Tensor:
     return x.index_select(0, i.reshape(1))[0]
 
 
-def make_relocalizer(cfg: SlamConfig, vocab: Tensor) -> Callable:
+def make_relocalizer(cfg: SlamConfig, vocab: Optional[Tensor] = None, *,
+                     device=None) -> Callable:
     """Returns fn(arena, db, feats, sampler) -> (ok, pose, kf_slot,
     n_inliers), all 0-d tensors (and a Pose) on the vocab's device: the
     first of the top-k BoW candidates that verifies geometrically, or
     (False, identity, -1, 0).
 
-    `vocab` [V, 256] ±1 int8 MUST be the codebook the database histograms
-    were built with."""
+    `vocab` [V, 256] ±1 int8 overrides the packaged codebook
+    (`load_trained_vocab(cfg.loop.vocab_size)`), and MUST be the codebook
+    the database histograms were built with.  With no `vocab` the packaged
+    one is loaded onto `device` (default "cuda"; RuntimeError without a
+    CUDA device); a given `vocab` keeps its device, which `device`, if
+    given, must name.  The fn carries its codebook as `fn.vocab`."""
+    from modular_slam_tpu_torch.engine import _resolve_device
+
+    if vocab is None:
+        vocab = torch.as_tensor(
+            load_trained_vocab(cfg.loop.vocab_size),
+            device=_resolve_device("cuda" if device is None else device))
+    elif device is not None:
+        dev = _resolve_device(device)
+        if dev.type != vocab.device.type or dev.index not in (
+                None, vocab.device.index):
+            raise ValueError(f"vocab on {vocab.device} but "
+                             f"device={device!r}")
     cam = camera_from_config(cfg.camera, vocab.device)
 
     def relocalize(arena: MapArena, db: LoopDatabase, feats: Features,
@@ -66,4 +84,5 @@ def make_relocalizer(cfg: SlamConfig, vocab: Tensor) -> Callable:
                         torch.zeros_like(n_inl[0]))
         return found, Pose(q=q, t=t), slot, n
 
+    relocalize.vocab = vocab
     return relocalize

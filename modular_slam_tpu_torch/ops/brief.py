@@ -74,8 +74,12 @@ def brief_from_atlas(blur_atlas: Tensor, level: Tensor, yx: Tensor,
                      angles: Tensor) -> Tensor:
     """Descriptor bits [N, 256] with continuous rotation, by one flat
     gather from the padded blurred pyramid atlas [n_levels, H, W] at
-    level [N] and level coords yx [N, 2].  A sample outside the atlas
-    reads a clamped index here, where the JAX version reads NaN."""
+    level [N] and level coords yx [N, 2].
+
+    Off the atlas the bits follow the JAX version's `jnp.take` (its
+    default fill mode): a flat index in [-n, 0) wraps to index + n, and
+    one below -n or at n or above reads NaN, which compares false, so
+    that bit is 0."""
     nlev, H, W = blur_atlas.shape
     ry1, rx1, ry2, rx2 = rotated_offsets(angles)
     base = level.long() * (H * W)
@@ -85,9 +89,15 @@ def brief_from_atlas(blur_atlas: Tensor, level: Tensor, yx: Tensor,
     idx2 = base[:, None] + (y + ry2) * W + (x + rx2)
     flat = blur_atlas.reshape(-1)
     n = flat.shape[0]
-    v1 = flat[torch.clamp(idx1, 0, n - 1)]
-    v2 = flat[torch.clamp(idx2, 0, n - 1)]
-    return (v1 < v2).to(torch.uint8)
+
+    def take(idx):
+        idx = torch.where(idx < 0, idx + n, idx)
+        inside = (idx >= 0) & (idx < n)
+        return flat[torch.where(inside, idx, 0)], inside
+
+    v1, in1 = take(idx1)
+    v2, in2 = take(idx2)
+    return ((v1 < v2) & in1 & in2).to(torch.uint8)
 
 
 @lru_cache(maxsize=None)
@@ -111,22 +121,22 @@ def _bin_sample_index_np(n_bins: int) -> np.ndarray:
     return out
 
 
-def extract_patches(atlas: Tensor, level: Tensor, yx: Tensor,
+def extract_patches(blur_atlas: Tensor, level: Tensor, yx: Tensor,
                     patch: int = BRIEF_PATCH) -> Tensor:
     """[N, patch^2] flattened patches centred at yx [N, 2] (y, x) of the
-    given levels of atlas [n_levels, H, W].
+    given levels of blur_atlas [n_levels, H, W].
 
     Exact pixel copies.  A patch that leaves the atlas (only the padded,
     invalid candidates at yx = 0 do) reads clamped indices here, where the
     JAX version reads NaN or 0: compare such rows only where valid."""
-    nlev, H, W = atlas.shape
+    nlev, H, W = blur_atlas.shape
     r = patch // 2
     d = torch.arange(-r, r + 1, device=yx.device)
     rows = (level.long() * H + yx[:, 0].long())[:, None] + d[None, :]
     rows = rows.clamp(0, nlev * H - 1)                            # [N, p]
     cols = (yx[:, 1].long()[:, None] + d[None, :]).clamp(0, W - 1)  # [N, p]
     flat = rows[:, :, None] * W + cols[:, None, :]                # [N, p, p]
-    return atlas.reshape(-1)[flat.reshape(flat.shape[0], -1)]
+    return blur_atlas.reshape(-1)[flat.reshape(flat.shape[0], -1)]
 
 
 def brief_from_patches(patches_flat: Tensor, angles: Tensor,

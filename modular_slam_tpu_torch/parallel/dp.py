@@ -11,13 +11,15 @@ tracked batched frame (their operators' vmap rules, ops/fast.py and
 ops/match.py).  The arena inserts, the tracker and PnP have batching
 rules for every op (no per-sequence fallback loop).
 
-The batch is split into contiguous groups, one per "seq" row of the grid
-(parallel/mesh.py), each on its row's first device, where JAX shards the
-batch over the mesh; with no communication between sequences the groups
-run one after the other on the host, each queued without a host read.
-Arenas and states are lists with one stacked entry per row (`[b]` of
-row r's entry is sequence r * B / rows + b), results are concatenated
-on the first row's device.
+The batch is split into contiguous groups, one per index of the grid's
+`axis` (parallel/mesh.py; "seq", the rows, by default), each on the first
+device of its slice of the grid, where JAX shards the batch over that
+mesh axis; with no communication between sequences the groups run one
+after the other on the host, each queued without a host read.  Arenas
+and states are lists with one stacked entry per group (`[b]` of group
+r's entry is sequence r * B / groups + b), results are concatenated on
+the first group's device.  An `axis` that is not one of
+`mesh.axis_names` raises ValueError, as JAX's `P(axis)` does.
 
 RANSAC draws: `samplers` holds one sampler per sequence, and sequence b
 draws exactly what samplers[b] would draw for it alone (JAX splits a key
@@ -36,6 +38,7 @@ from __future__ import annotations
 import functools
 from typing import Callable, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from modular_slam_tpu_torch.config import SlamConfig
@@ -58,15 +61,26 @@ def tree_map(fn: Callable, *trees):
     return fn(*trees)
 
 
-def row_groups(mesh: Mesh, batch: int) -> List[Tuple[torch.device, slice]]:
-    """(device, slice of the batch) of each "seq" row: contiguous groups
-    of batch / rows sequences."""
-    rows = mesh.devices.shape[0]
-    if batch % rows:
-        raise ValueError(f"batch {batch} not divisible by {rows} grid rows")
-    n = batch // rows
-    return [(torch.device(mesh.devices[r, 0]), slice(r * n, (r + 1) * n))
-            for r in range(rows)]
+def _axis_index(mesh: Mesh, axis: str) -> int:
+    if axis not in mesh.axis_names:
+        raise ValueError(f"axis {axis!r} is not one of the mesh's "
+                         f"{tuple(mesh.axis_names)}")
+    return list(mesh.axis_names).index(axis)
+
+
+def row_groups(mesh: Mesh, batch: int, axis: str = "seq"
+               ) -> List[Tuple[torch.device, slice]]:
+    """(device, slice of the batch) of each index along the grid's `axis`:
+    contiguous groups of batch / mesh.shape[axis] sequences, each on the
+    first device of its slice of the grid."""
+    slices = np.moveaxis(mesh.devices, _axis_index(mesh, axis), 0)
+    groups = slices.shape[0]
+    if batch % groups:
+        raise ValueError(f"batch {batch} not divisible by {groups} grid "
+                         f"slices along {axis!r}")
+    n = batch // groups
+    return [(torch.device(slices[g].flat[0]), slice(g * n, (g + 1) * n))
+            for g in range(groups)]
 
 
 class _Sample(torch.autograd.Function):
@@ -99,12 +113,13 @@ def _batch_draw(samplers: Sequence) -> Callable:
     return functools.partial(kind.draw_batch, samplers)
 
 
-def make_batch_init(cfg: SlamConfig, mesh: Mesh, batch: int
+def make_batch_init(cfg: SlamConfig, mesh: Mesh, batch: int,
+                    axis: str = "seq"
                     ) -> Tuple[List[MapArena], List[TrackState]]:
-    """Empty arenas and initial states of `batch` sequences: per grid
-    row, its group stacked on the row's device."""
+    """Empty arenas and initial states of `batch` sequences: per group
+    along `axis`, its sequences stacked on the group's device."""
     arenas, states = [], []
-    for dev, sl in row_groups(mesh, batch):
+    for dev, sl in row_groups(mesh, batch, axis):
         n = sl.stop - sl.start
 
         def stack(x, n=n):
@@ -115,17 +130,20 @@ def make_batch_init(cfg: SlamConfig, mesh: Mesh, batch: int
     return arenas, states
 
 
-def make_batch_slam_step(cfg: SlamConfig, mesh: Mesh) -> Callable:
+def make_batch_slam_step(cfg: SlamConfig, mesh: Mesh,
+                         axis: str = "seq") -> Callable:
     """The batched step:
     step(arenas, states, grays [B,H,W], depths [B,H,W], times [B],
-         samplers, bootstrap=False) -> (arenas, states, results [B]).
-    Frames are moved to each row's device (a no-op where they are).
-    Reads nothing back from the device."""
+         samplers, bootstrap=False) -> (arenas, states, results [B]),
+    the batch split along the grid's `axis`.  Frames are moved to each
+    group's device (a no-op where they are).  Reads nothing back from the
+    device."""
+    _axis_index(mesh, axis)             # an unknown axis raises here
     steps = {}
 
     def group(dev, arena, state, gray, depth, time, samplers, bootstrap):
         if dev not in steps:
-            steps[dev] = make_slam_step(cfg, dev)
+            steps[dev] = make_slam_step(cfg, device=dev)
         draw = _batch_draw(samplers)
 
         def sampler(valid, n_hyp):
@@ -133,7 +151,8 @@ def make_batch_slam_step(cfg: SlamConfig, mesh: Mesh) -> Callable:
 
         def one(arena, state, gray, depth, time):
             arena, state, result, _ = steps[dev](arena, state, gray, depth,
-                                                 time, sampler, bootstrap)
+                                                 time, sampler,
+                                                 bootstrap=bootstrap)
             return arena, state, tuple(result)[:-1]   # no `relocalized`
 
         arena, state, result = torch.func.vmap(one)(arena, state, gray,
@@ -146,7 +165,8 @@ def make_batch_slam_step(cfg: SlamConfig, mesh: Mesh) -> Callable:
             raise ValueError(f"{len(samplers)} samplers for a batch of "
                              f"{times.shape[0]}")
         out_a, out_s, results = [], [], []
-        for r, (dev, sl) in enumerate(row_groups(mesh, times.shape[0])):
+        for r, (dev, sl) in enumerate(row_groups(mesh, times.shape[0],
+                                                 axis)):
             a, s, res = group(dev, arenas[r], states[r], grays[sl].to(dev),
                               depths[sl].to(dev), times[sl].to(dev),
                               samplers[sl], bootstrap)
@@ -160,14 +180,16 @@ def make_batch_slam_step(cfg: SlamConfig, mesh: Mesh) -> Callable:
     return step
 
 
-def make_batch_slam_scan(cfg: SlamConfig, mesh: Mesh) -> Callable:
+def make_batch_slam_scan(cfg: SlamConfig, mesh: Mesh,
+                         axis: str = "seq") -> Callable:
     """C frames of B sequences:
     fn(arenas, states, grays [C,B,H,W], depths [C,B,H,W], times [C,B],
        samplers, bootstrap=False) -> (arenas, states, results [C,B]).
     A Python loop of the batched step that reads nothing back, as
     `engine.make_slam_scan` is for one sequence; `bootstrap` says the
-    arenas are empty before the chunk's first frame."""
-    step = make_batch_slam_step(cfg, mesh)
+    arenas are empty before the chunk's first frame; the batch splits
+    along `axis` as in `make_batch_slam_step`."""
+    step = make_batch_slam_step(cfg, mesh, axis)
 
     def scan(arenas, states, grays, depths, times, samplers,
              bootstrap: bool = False):

@@ -56,6 +56,11 @@ class Keypoints(NamedTuple):
     depth: Tensor
     valid: Tensor
 
+    @property
+    def capacity(self) -> int:
+        """N, the fixed capacity (a Python int)."""
+        return self.uv.shape[-2]
+
 
 class Descriptors(NamedTuple):
     """BRIEF-256 descriptors.

@@ -245,6 +245,19 @@ def test_masked_indices_exact(n, p, cap):
     assert got.shape == (cap,)
 
 
+def test_ba_records_take_jax_style_construction():
+    """`BAStats` and `WindowSolution` built from JAX's fields alone, as
+    JAX's sharded BA builds its stats: the port's extra trailing fields
+    take their defaults (0 iterations, no stats)."""
+    rep = torch.zeros(())
+    stats = tba.BAStats(rep, rep, rep, rep, rep)
+    assert stats.n_iterations == 0
+    assert stats[:5] == tuple(jba.BAStats(*[rep] * 5))
+    sol = tba.WindowSolution(rep, rep, rep, rep)
+    assert sol.stats is None
+    assert tba.WindowSolution._fields[:4] == jba.WindowSolution._fields
+
+
 def test_stall_update_exact_and_ignores_rejected_steps():
     for stall in (0, 1, 2):
         for accept in (False, True):

@@ -435,7 +435,7 @@ def test_scan_reads_nothing_back():
         for f in frames])
     depths = torch.stack([torch.from_numpy(f[1]) for f in frames])
     times = torch.tensor([f[2] for f in frames], dtype=torch.float32)
-    scan = make_slam_scan(cfg, "cpu")
+    scan = make_slam_scan(cfg, device="cpu")
     mode = HostReads()
     with mode:
         arena, state, res = scan(empty_arena(cfg.map), initial_state(),

@@ -308,6 +308,47 @@ def test_continuous_rotation_brief_matches_jax():
                                  jnp.asarray(ang))))
 
 
+def test_brief_from_atlas_off_the_atlas_matches_jax():
+    """Keypoints in the corners of a small atlas: flat sample indices in
+    [-n, 0) wrap, as JAX's `jnp.take` does, and those below -n or at n and
+    above read NaN there, so their bits are 0; the bits are JAX's exactly."""
+    rng = np.random.default_rng(12)
+    atlas = rng.uniform(0, 255, (2, 5, 6)).astype(np.float32)
+    n = atlas.size
+    corners = [(0, 0), (0, 5), (4, 0), (4, 5), (2, 3)]
+    yx = np.array([c for c in corners for _ in range(2)] * 4, np.int32)
+    lvl = np.repeat(np.arange(2, dtype=np.int32), len(yx) // 2)
+    ang = rng.uniform(-np.pi, np.pi, len(yx)).astype(np.float32)
+    ry1, rx1, ry2, rx2 = (x.numpy() for x in
+                          tbrief.rotated_offsets(torch.from_numpy(ang)))
+    base = (lvl.astype(np.int64) * atlas.shape[1] * atlas.shape[2])[:, None]
+    idx = np.concatenate([
+        base + (yx[:, :1] + ry) * atlas.shape[2] + yx[:, 1:] + rx
+        for ry, rx in ((ry1, rx1), (ry2, rx2))])
+    assert ((idx >= -n) & (idx < 0)).sum() > 100        # wrap
+    assert (idx < -n).sum() > 100 and (idx >= n).sum() > 100  # NaN in JAX
+    assert ((idx >= 0) & (idx < n)).sum() > 100
+    bits = tbrief.brief_from_atlas(*map(torch.from_numpy,
+                                        (atlas, lvl, yx, ang)))
+    ref = jbrief.brief_from_atlas(*map(jnp.asarray, (atlas, lvl, yx, ang)))
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(ref))
+    assert 0 < bits.numpy().mean() < 0.5
+
+
+def test_keypoints_capacity_matches_jax():
+    """`Keypoints.capacity`, N as a Python int, as JAX's on its detect
+    output (read from its shapes)."""
+    cfg = tiny_test_config()
+    rgb, depth = _frame(cfg)
+    gray = rgb_to_luma(torch.from_numpy(rgb))
+    got = tdet.detect(gray, torch.from_numpy(depth), cfg.detector)
+    ref = jax.eval_shape(lambda g, d: jdet.detect(g, d, cfg.detector),
+                         jnp.asarray(gray.numpy()), jnp.asarray(depth))
+    assert type(got.keypoints.capacity) is int
+    assert got.keypoints.capacity == ref.keypoints.capacity == \
+        cfg.detector.max_keypoints
+
+
 def test_brief_matmul_matches_gather_oracle():
     """The JAX package's test through the port: the binned BRIEF is
     bit-exact against the continuous gather on the rounded atlas at

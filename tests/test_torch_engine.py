@@ -498,14 +498,16 @@ def test_full_preset_compacts_like_jax(monkeypatch):
 @pytest.mark.parametrize("entry", [
     "SlamSystem", "make_slam_step", "make_pipeline", "make_pipeline_slam",
     "make_local_ba", "make_global_ba", "make_global_ba_compact",
-    "BackendExecutor", "make_pipeline_full", "LoopPipeline"])
+    "BackendExecutor", "make_pipeline_full", "LoopPipeline",
+    "make_slam_scan", "make_relocalizer"])
 def test_entry_points_default_to_the_card(entry):
     """With no device the entry points take "cuda": on a machine with no
     CUDA device they raise instead of running on the CPU."""
     from modular_slam_tpu_torch.backend import ba
     from modular_slam_tpu_torch.backend.executor import BackendExecutor
-    from modular_slam_tpu_torch.engine import make_slam_step
+    from modular_slam_tpu_torch.engine import make_slam_scan, make_slam_step
     from modular_slam_tpu_torch.loop.pipeline import LoopPipeline
+    from modular_slam_tpu_torch.loop.relocalizer import make_relocalizer
     from modular_slam_tpu_torch.models import make_pipeline
 
     cfg = tiny_test_config()
@@ -519,7 +521,9 @@ def test_entry_points_default_to_the_card(entry):
                  cfg, (16, 1024, 4096)),
              "BackendExecutor": lambda: BackendExecutor(cfg),
              "make_pipeline_full": lambda: make_pipeline("full", cfg),
-             "LoopPipeline": lambda: LoopPipeline(cfg)}[entry]
+             "LoopPipeline": lambda: LoopPipeline(cfg),
+             "make_slam_scan": lambda: make_slam_scan(cfg),
+             "make_relocalizer": lambda: make_relocalizer(cfg)}[entry]
     if torch.cuda.is_available():
         made = build()
         if isinstance(made, SlamSystem):
@@ -527,3 +531,53 @@ def test_entry_points_default_to_the_card(entry):
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
+
+
+def test_slam_system_takes_jax_positional_order():
+    """`SlamSystem(cfg, 3, False)` means seed 3 and no backend, as in the
+    JAX engine; `device` and `sampler` are keyword-only."""
+    from modular_slam_tpu_torch.ops.pnp import MultinomialSampler
+
+    cfg = tiny_test_config()
+    jsys = JaxSlamSystem(cfg, 3, False)
+    tsys = SlamSystem(cfg, 3, False, device="cpu")
+    assert jsys.enable_backend is tsys.enable_backend is False
+    np.testing.assert_array_equal(np.asarray(jsys._key),
+                                  np.asarray(jax.random.PRNGKey(3)))
+    assert torch.equal(tsys.sampler.uniforms(8),
+                       MultinomialSampler(3).uniforms(8))
+    jax_args = (3, False, 2, False, False, None, "async", True)
+    full = SlamSystem(cfg, *jax_args, device="cpu")
+    assert (full.ba_every, full.ba_mode, full.defer_chunk_sync) == (
+        2, "async", True)
+    with pytest.raises(TypeError):
+        SlamSystem(cfg, *jax_args, "cpu")
+
+
+def test_make_slam_step_takes_jax_positional_order():
+    """`make_slam_step(cfg, None, device=...)` is the step of the keyword
+    form: two frames (a bootstrap and a tracked one) give equal maps,
+    states and results."""
+    from modular_slam_tpu_torch.engine import make_slam_step
+    from modular_slam_tpu_torch.frontend.tracker import initial_state
+    from modular_slam_tpu_torch.io.tum import frame_to_device
+    from modular_slam_tpu_torch.map.arena import empty_arena
+    from modular_slam_tpu_torch.ops.pnp import MultinomialSampler
+
+    cfg = tiny_test_config()
+    gen = PlaneSceneGenerator(cfg.camera, seed=5, texture_ppm=100.0)
+    frames = [frame_to_device(*gen.render(p), float(i), device="cpu")
+              for i, p in enumerate(gen.trajectory(
+                  2, step_t=(0.01, 0.004, 0.0)))]
+    outs = []
+    for step in (make_slam_step(cfg, None, device="cpu"),
+                 make_slam_step(cfg, components=None, device="cpu")):
+        arena, state = empty_arena(cfg.map), initial_state()
+        sampler = MultinomialSampler(1)
+        for fr in frames:
+            arena, state, result, _ = step(arena, state, fr.gray, fr.depth,
+                                           fr.timestamp, sampler)
+        assert bool(result.tracking_ok)
+        outs.append(jax.tree.leaves((arena, state, result)))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

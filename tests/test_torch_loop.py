@@ -205,7 +205,7 @@ def scene():
         q = q / np.linalg.norm(q)
         pose = Pose(q=_t(q), t=_t(np.asarray(t, np.float32)))
         fr = frame_to_device(*gen.render(Pose(q=q, t=np.asarray(
-            t, np.float32))), 0.0, "cpu")
+            t, np.float32))), 0.0, device="cpu")
         return pose, detect(fr.gray, fr.depth, cfg.detector)
 
     def to_jax(f):
@@ -423,3 +423,69 @@ def test_resolve_pending_drains_fifo_under_the_cooldown():
         _, _, closed = lp.resolve_pending("arena", "state")
         assert closed and not lp.has_pending_closure
     assert decided["port"] == decided["jax"] == [1, 3, 6]
+
+
+def test_relocalizer_loads_the_packaged_vocab_by_default():
+    """`make_relocalizer(cfg, device=...)` with no vocab takes JAX's
+    default, the packaged codebook, onto the device; it relocalizes as the
+    call that passes that codebook does (same draws), on a
+    `tiny_test_config` map."""
+    from modular_slam_tpu_torch.config import tiny_test_config
+    from modular_slam_tpu_torch.engine import SlamSystem
+    from modular_slam_tpu_torch.eval.synthetic import PlaneSceneGenerator
+    from modular_slam_tpu_torch.loop.relocalizer import make_relocalizer
+    from modular_slam_tpu_torch.loop.vocab import \
+        load_trained_vocab as t_load_vocab
+    from modular_slam_tpu_torch.ops.pnp import MultinomialSampler
+
+    cfg = tiny_test_config()
+    system = SlamSystem(cfg, 0, False, enable_relocalization=True,
+                        device="cpu")
+    gen = PlaneSceneGenerator(cfg.camera, seed=5, texture_ppm=100.0)
+    for i, pose in enumerate(gen.trajectory(3, step_t=(0.01, 0.004, 0.0))):
+        system.process(*gen.render(pose), float(i))
+    packaged = t_load_vocab(cfg.loop.vocab_size)
+    np.testing.assert_array_equal(
+        packaged, jvocab.load_trained_vocab(cfg.loop.vocab_size))
+    default = make_relocalizer(cfg, device="cpu")
+    assert default.vocab.device.type == "cpu"
+    np.testing.assert_array_equal(default.vocab.numpy(), packaged)
+    given = make_relocalizer(cfg, _t(packaged))
+    args = (system.arena, system._loop.db, system.last_features)
+    got = default(*args, MultinomialSampler(4))
+    ref = given(*args, MultinomialSampler(4))
+    assert bool(got[0]) and int(got[2]) >= 0
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="device"):
+        make_relocalizer(cfg, _t(packaged), device="meta")
+
+
+def test_pending_global_ba_takes_jax_wait_argument(monkeypatch):
+    """`maybe_run_pending_gba(arena, state, kf_slot, wait, counters)`: a
+    JAX-style fourth argument is `wait` (nothing to wait for in the port),
+    and `counters` comes fifth."""
+    from modular_slam_tpu_torch.config import tiny_test_config
+    from modular_slam_tpu_torch.loop.pipeline import LoopPipeline
+
+    lp = LoopPipeline(tiny_test_config(), False, device="cpu")
+    seen = []
+
+    def tier_for(arena, counters):
+        seen.append(counters)
+        return (16, 512, 2048), counters
+
+    monkeypatch.setattr(lp, "_tier_for", tier_for)
+    monkeypatch.setattr(lp, "_gba_for", lambda tier: None)
+    monkeypatch.setattr(lp, "_exec_global_ba",
+                        lambda arena, state, kf_slot, gba: ("ran", kf_slot))
+    assert lp.maybe_run_pending_gba("arena", "state", 3, True) == (
+        "arena", "state")                      # nothing pending
+    for wait in (True, False):
+        lp._gba_pending = True
+        assert lp.maybe_run_pending_gba("arena", "state", 3, wait,
+                                        (2, 40, 90)) == ("ran", 3)
+        assert not lp._gba_pending
+    lp._gba_pending = True
+    lp.maybe_run_pending_gba("arena", "state", 3, True)
+    assert seen == [(2, 40, 90), (2, 40, 90), None]

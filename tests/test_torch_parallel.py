@@ -174,6 +174,32 @@ def test_mesh_shapes_and_errors():
             MultiSequenceRunner(tiny_test_config(), batch=2)
 
 
+def test_batch_splits_along_the_named_axis():
+    """`axis` picks the grid axis the batch splits over ("seq", the rows,
+    by default: the split of a grid of two rows); an axis the grid lacks
+    raises ValueError, as JAX's `P(axis)` does."""
+    from modular_slam_tpu_torch.parallel.dp import row_groups
+
+    cfg = tiny_test_config()
+    mesh = make_mesh(seq=2, obs=4, devices=CPUS * 8)
+    assert [sl for _, sl in row_groups(mesh, 8)] == [slice(0, 4),
+                                                     slice(4, 8)]
+    assert [sl for _, sl in row_groups(mesh, 8, "obs")] == [
+        slice(2 * g, 2 * g + 2) for g in range(4)]
+    arenas, states = make_batch_init(cfg, mesh, 8, "obs")
+    assert [a.n_kf.shape[0] for a in arenas] == [2] * 4
+    assert [s.lost.shape[0] for s in states] == [2] * 4
+    for fn, args in ((make_batch_init, (cfg, mesh, 8)),
+                     (make_batch_slam_step, (cfg, mesh)),
+                     (make_batch_slam_scan, (cfg, mesh))):
+        with pytest.raises(ValueError, match="nope"):
+            fn(*args, axis="nope")
+    with pytest.raises(ValueError, match="nope"):
+        jdp.make_batch_init(jax_tiny_config(),
+                            jmesh.make_mesh(seq=1, devices=jax.devices()),
+                            2, axis="nope")
+
+
 def test_batched_scan_matches_jax(scenes, jax_run):
     keys, jarenas, jres = jax_run
     cfg = scenes[0]

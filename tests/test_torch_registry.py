@@ -183,7 +183,7 @@ def test_default_components_are_the_builtin_step():
     frames = _plane_frames(cfg, n=6)
     dflt = _odometry(cfg, seed=1, component_names=dict(DEFAULT_NAMES))
     builtin = _odometry(cfg, seed=1)
-    builtin._step = make_slam_step(cfg, "cpu")      # components=None
+    builtin._step = make_slam_step(cfg, device="cpu")  # components=None
     for f in frames:
         dflt.process(*f)
         builtin.process(*f)
@@ -196,7 +196,7 @@ def test_default_components_are_the_builtin_step():
     times = torch.tensor([f[2] for f in frames], dtype=torch.float32)
     outs = []
     for comps in (None, build_components(cfg)):
-        scan = make_slam_scan(cfg, "cpu", comps)
+        scan = make_slam_scan(cfg, comps, device="cpu")
         outs.append(scan(empty_arena(cfg.map), initial_state(), grays,
                          depths, times, MultinomialSampler(2),
                          bootstrap=True))
