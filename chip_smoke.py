@@ -171,13 +171,32 @@ Phases, each printing one JSON line:
               final map, each against make_global_ba on the same arena:
               final cost within 1e-4 relative in float32 at the production
               budget, poses within 1e-4 m / rad in float64 converged, no
-              halo observation dropped; ms per call (mean of 2 after a
+              halo observation dropped; ms per call (1 timed call after a
               warm call) and the warm call's device busy ms.  One card:
               nothing here is a scaling figure
+  bench       the port's benchmark in process
+              (modular_slam_tpu_torch/bench.py, bench.py's workload:
+              67 frames of the seed-42 plane at 640x480): its tracking
+              run tracks all 48 timed frames, launches K1 once per frame
+              and K2 and its merge once per frame after the bootstrap,
+              and no scan call of its 3 timed chunks syncs with the host
+              (the sync debug mode); its full (slam, pipelined) run tracks
+              every frame with the same launch counts; `bench_stages`,
+              at 8 distinct frames a probe (the bench takes 32),
+              launches K1 once per frame in the detect and step probes
+              and K2 and the merge once per frame in the step, track and
+              kernel-matcher probes (by the launch counters), each shows
+              in those probes' traces, and no kernel in the plain
+              matcher's; frames/s, the timed chunks' ms and the stage ms
+  train_vocab tools/torch_train_vocab.py's `main` in process on the card
+              at a reduced size (2 scenes x 3 frames, a 64-word codebook,
+              one revisit scene) into a temporary directory: exit 0, and
+              the codebook it wrote read back by `load_trained_vocab`
   kernels     every kernel: launches on the CLI path (`cli`, the main
               path of the entry point slice) and by path (odometry, full,
               chunk_odometry, chunk, cli, multiseq: the B = 3 run, viewer:
-              the live loop, api: the api phase's calls),
+              the live loop, api: the api phase's calls, bench: its
+              tracking and full runs),
               error, kernel and plain-version device times, the bound
               (bytes or operations at the H100's published peaks), the
               share of it reached, and the library call's time where one
@@ -193,6 +212,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -267,7 +287,7 @@ VIEWER_FRAMES = 48          # viewer: the subprocess's dataset
 VIEWER_LIVE_FRAMES = 8      # viewer: frames of the in-process live loop
 VIEWER_LM_UV_TOL = 1e-5     # viewer: overlay lm_uv, kernel vs plain matcher
 VIEWER_TIMEOUT_S = 300
-SHARDED_TIMED_RUNS = 2      # sharded_ba: timed calls after the traced one
+SHARDED_TIMED_RUNS = 1      # sharded_ba: timed calls after the traced one
 SHARDED_CONVERGED_CG = 200  # sharded_ba: the float64 solve, as in
 SHARDED_CONVERGED_LM = 10   # ba_cpu_vs_gpu's converged one
 CLI_TIMEOUT_S = 600
@@ -283,6 +303,11 @@ EVAL_DATASETS = 3
 EVAL_FRAMES = 40
 EVAL_MIN_KEYFRAMES = 2
 EVAL_TIMEOUT_S = 600
+BENCH_TIMED_FRAMES = 48        # bench: bench.py's 67 frames - 3 - 16
+BENCH_PROBE_FRAMES = 8         # bench: distinct frames of a stage probe
+VOCAB_SIZE = 64                # train_vocab: a reduced run
+VOCAB_ARGS = ("--scenes", "2", "--frames-per-scene", "3",
+              "--revisit-scenes", "1")
 LEVEL_SHAPES = [(480, 640), (400, 533), (333, 444), (278, 370),
                 (231, 309), (193, 257), (161, 214), (134, 179)]
 # Published peaks of one H100 SXM (dense): HBM, int8 tensor cores, f32
@@ -1253,22 +1278,19 @@ def phase_ba_cpu_vs_gpu(torch, system, cfg) -> None:
                              "cuda": float(gs.final_cost)}}})
 
 
-def _traced(torch, fn):
-    """One call of fn under a CUDA-only trace, with host syncs counted by
-    the sync debug mode.  -> (fn's result, {wall ms ended by a device
-    sync, device busy ms, device ops, syncs, the top 8 device ops})."""
+@contextlib.contextmanager
+def _sync_sites(torch):
+    """Count the host syncs raised inside the block, by the sync debug
+    mode's warnings, at the innermost frame of this repository; yields the
+    Counter of sites."""
     import traceback
     import warnings
-
-    from torch.profiler import ProfilerActivity, profile
 
     sites = collections.Counter()
     root = os.path.dirname(os.path.abspath(__file__))
     inside = [False]
 
     def count_sync(message, category, filename, lineno, *rest):
-        """Count a sync raised inside fn at the innermost frame of this
-        repository."""
         if not inside[0] or "synchroniz" not in str(message):
             return
         ours = [f for f in traceback.extract_stack()[:-1]
@@ -1277,21 +1299,31 @@ def _traced(torch, fn):
         sites[f"{os.path.relpath(at.filename, root)}:{at.lineno}" if at
               else f"{filename}:{lineno}"] += 1
 
-    torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = count_sync
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            torch.cuda.set_sync_debug_mode("warn")
-            inside[0] = True
-            try:
-                out = fn()
-            finally:
-                inside[0] = False
-                torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        torch.cuda.set_sync_debug_mode("warn")
+        inside[0] = True
+        try:
+            yield sites
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def _traced(torch, fn):
+    """One call of fn under a CUDA-only trace, with host syncs counted by
+    the sync debug mode.  -> (fn's result, {wall ms ended by a device
+    sync, device busy ms, device ops, syncs, the top 8 device ops})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with _sync_sites(torch) as sites:
+            out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     events = sorted(prof.key_averages(), key=_device_us, reverse=True)
     return out, {
         "wall_ms": 1e3 * wall,
@@ -2536,6 +2568,152 @@ def phase_viewer(torch, kernels, frames, workdir: str) -> dict:
     return launches
 
 
+def phase_bench(torch, kernels) -> collections.Counter:
+    """The port's benchmark in process (modular_slam_tpu_torch/bench.py on
+    bench.py's workload): `_sequence("plane")`, `bench_ours_tracking`
+    with each scan call's host syncs counted, `bench_ours_full`
+    (pipelined) and `bench_stages`.  -> the launches of the tracking and
+    full runs."""
+    import numpy as np
+
+    from modular_slam_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    cfg, frames, _ = bench._sequence("plane")
+    render_s = time.perf_counter() - t0
+    n_timed = len(frames) - bench.WARMUP - bench.CHUNK
+    # each scan call (one chunk) under the sync debug mode
+    syncs = []
+    make_scan = bench.make_slam_scan
+
+    def counting_scan(*a, **k):
+        scan = make_scan(*a, **k)
+
+        def counted(*args, **kw):
+            with _sync_sites(torch) as sites:
+                out = scan(*args, **kw)
+            syncs.append(dict(sites))
+            return out
+        return counted
+
+    bench.make_slam_scan = counting_scan
+    detail = {}
+    kernels.reset_launch_counts()
+    try:
+        fps_track = bench.bench_ours_tracking(cfg, frames, detail=detail)
+    finally:
+        bench.make_slam_scan = make_scan
+    track_launches = collections.Counter(kernels.launch_counts())
+    timed_syncs = syncs[-(n_timed // bench.CHUNK):]
+    check(detail["tracked_ok"] == n_timed == BENCH_TIMED_FRAMES,
+          f"bench: tracking {detail['tracked_ok']}/{n_timed} timed frames")
+    check(not any(timed_syncs),
+          f"bench: host syncs inside the timed chunks: {timed_syncs}")
+    check(track_launches == {"fast_score": len(frames),
+                             "hamming_2nn": len(frames) - 1,
+                             "hamming_merge": len(frames) - 1},
+          f"bench: tracking launches {dict(track_launches)}, want K1 "
+          f"{len(frames)} and K2, merge {len(frames) - 1}")
+
+    kernels.reset_launch_counts()
+    fps_full, n_kf, n_ok, system = bench.bench_ours_full(cfg, frames)
+    full_launches = collections.Counter(kernels.launch_counts())
+    n_run = len(system.results)
+    check(n_ok == n_run, f"bench: full run tracked {n_ok}/{n_run}")
+    check(full_launches == {"fast_score": n_run, "hamming_2nn": n_run - 1,
+                            "hamming_merge": n_run - 1},
+          f"bench: full launches {dict(full_launches)} over {n_run} frames")
+
+    # the stage probes at a cut depth (the bench's own run takes 32)
+    kernels.reset_launch_counts()
+    probe_frames, bench.PROBE_FRAMES = bench.PROBE_FRAMES, BENCH_PROBE_FRAMES
+    try:
+        stages = bench.bench_stages(cfg, frames)
+    finally:
+        bench.PROBE_FRAMES = probe_frames
+    stage_launches = kernels.launch_counts()
+    # each probe runs 3 times (warm-up, timed, traced) over n frames;
+    # the arena it tracks against is built by one scan over them first
+    n = 2 * BENCH_PROBE_FRAMES
+    want = {"fast_score": n + 3 * n * 2,
+            "hamming_2nn": n - 1 + 3 * n * 3,
+            "hamming_merge": n - 1 + 3 * n * 3}
+    check(stage_launches == want,
+          f"bench: stage probes launched {stage_launches}, want {want}")
+    # the traces: each kernel in the probes that run it (a long trace
+    # may drop a few events, so this is no count)
+    probes = stages["kernels_in_profile"]
+    for probe, names in {"detect": ("fast_score",),
+                         "step": ("fast_score", "hamming_2nn",
+                                  "hamming_merge"),
+                         "track_only": ("hamming_2nn", "hamming_merge"),
+                         "match_kernel": ("hamming_2nn",
+                                          "hamming_merge")}.items():
+        for name in names:
+            check(probes[probe][name] > 0,
+                  f"bench: no {name} in the {probe} probe's trace")
+    check(not any(probes["match_plain"].values()),
+          f"bench: a kernel in the plain matcher's trace: "
+          f"{probes['match_plain']}")
+    ms = {k: v for k, v in stages.items() if k.endswith("_ms")}
+    check(all(math.isfinite(v) for v in ms.values())
+          and all(v > 0 for k, v in ms.items() if k != "detect_in_step_ms"),
+          f"bench: stage ms {ms}")
+    emit({"phase": "bench", "tracking_fps": fps_track,
+          "tracking_ba_fps": fps_full, "keyframes": n_kf,
+          "tracked_ok": n_ok, "frames": n_run,
+          "chunk_ms": detail["chunk_ms"],
+          "chunk_host_ms": detail["chunk_host_ms"],
+          "syncs_per_scan_call": [sum(x.values()) for x in syncs],
+          "stage_ms": stages, "render_s": render_s,
+          "launches_tracking": dict(track_launches),
+          "launches_full": dict(full_launches),
+          "launches_stage_probes": stage_launches})
+    return track_launches + full_launches
+
+
+def phase_train_vocab(workdir: str) -> None:
+    """tools/torch_train_vocab.py's `main` in process, on the card, at a
+    reduced size, into a codebook under `workdir` that the port's
+    `load_trained_vocab` reads."""
+    import importlib.util
+    import io
+
+    import numpy as np
+
+    from modular_slam_tpu_torch.loop import vocab
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_vocab", os.path.join(root, "tools",
+                                          "torch_train_vocab.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = os.path.join(workdir, f"vocab_{VOCAB_SIZE}_256.npz")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as stdout:
+        rc = tool.main([*VOCAB_ARGS, "--vocab-size", str(VOCAB_SIZE),
+                        "--out", out])
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"train_vocab: rc {rc}")
+    summary = json.loads(stdout.getvalue().splitlines()[-1])
+    packaged = vocab._VOCAB_DIR
+    vocab._VOCAB_DIR = workdir          # where load_trained_vocab looks
+    try:
+        loaded = vocab.load_trained_vocab(VOCAB_SIZE)
+    finally:
+        vocab._VOCAB_DIR = packaged
+    with np.load(out) as f:
+        written = f["vocab"]
+    check(np.array_equal(loaded, written) and loaded.shape
+          == (VOCAB_SIZE, 256) and set(np.unique(loaded)) <= {-1, 1}
+          and not np.array_equal(loaded, vocab.make_vocab(VOCAB_SIZE)),
+          f"train_vocab: {out} does not load as a trained codebook")
+    check(summary["device"].startswith("cuda"),
+          f"train_vocab: ran on {summary['device']}")
+    emit({"phase": "train_vocab", "seconds": seconds, **summary})
+
+
 def _card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -2780,6 +2958,8 @@ def main() -> int:
         multiseq_launches = phase_multiseq(torch, kernels, cfg)
         phase_evaluate(torch, workdir)
         viewer_launches = phase_viewer(torch, kernels, frames, workdir)
+        bench_launches = phase_bench(torch, kernels)
+        phase_train_vocab(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2796,7 +2976,8 @@ def main() -> int:
                               "cli": cli_launches[k.name],
                               "multiseq": multiseq_launches[k.name],
                               "viewer": viewer_launches[k.name],
-                              "api": api_launches[k.name]},
+                              "api": api_launches[k.name],
+                              "bench": bench_launches[k.name]},
          **{key: timing[k.name][key] for key in keys}}
         for k in kernels.KERNELS.values()]})
 

@@ -8,8 +8,11 @@ write a dataset; track two sequences batched and evaluate data/sample;
 run the viewer, its overlay and server, and the three sharded bundle
 adjustments in a one-rank gloo world; call the reference ORB functions,
 `detect_until` at each cut, `covis_counts`, `apply_backend_update` and a
-one-candidate `geometric_verify`; `chip_smoke.py` imports too, and
-without a card exits non-zero.  A bare `import modular_slam_tpu_torch`
+one-candidate `geometric_verify`; run the port's benchmark's tracking
+function at tiny size, which without a device named raises on a machine
+with no card, and import the four `tools/torch_*.py` tools, running the
+scan tool's matcher probes; `chip_smoke.py` imports too, and without a
+card exits non-zero.  A bare `import modular_slam_tpu_torch`
 gives the configs and imports no op."""
 
 import os
@@ -157,6 +160,34 @@ SCRIPT = textwrap.dedent("""
                            camera_from_config(cfg.camera), cfg,
                            MultinomialSampler(0))
     assert isinstance(ver, LoopVerification) and ver.ok.dim() == 0
+    from modular_slam_tpu_torch import bench as port_bench
+    big = cfg.replace(map=MapConfig(max_keyframes=64, max_landmarks=4096,
+                                    max_observations=16384))
+    bgen = PlaneSceneGenerator(cfg.camera, seed=42, texture_ppm=100.0)
+    bframes = list(bgen.sequence(bgen.trajectory(
+        35, step_t=(0.005, 0.002, 0.0), step_rot=(0.001, 0.002, 0.0))))
+    detail = {}
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert port_bench.bench_ours_tracking(big, bframes, device="cpu",
+                                              detail=detail) > 0
+    assert detail["tracked_ok"] == 16, detail
+    if not torch.cuda.is_available():
+        try:
+            port_bench.bench_ours_tracking(big, bframes)
+            raise AssertionError("bench ran without a card")
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e)
+    import importlib.util
+    tools = {}
+    for name in ("train_vocab", "detect_bench", "scan_bench", "ba_bench"):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join("tools", f"torch_{name}.py"))
+        tools[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tools[name])
+    with contextlib.redirect_stdout(io.StringIO()) as scan_out:
+        assert tools["scan_bench"].main(["--device", "cpu", "--tiny",
+                                         "--probe", "match", "--n", "2"]) == 0
+    assert "match plain + dedupe" in scan_out.getvalue()
     import chip_smoke
     if not torch.cuda.is_available():
         assert chip_smoke.main() == 2      # no card: no result, non-zero
