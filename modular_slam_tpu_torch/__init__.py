@@ -23,8 +23,10 @@ adjustments on `torch.distributed` (`parallel/`); the viewer
 (`viewer.py`, `viz/`); and the reference ORB functions, `detect_until`,
 `covis_counts` and the other library functions off the engine's path.
 Calls bind as in the JAX package: JAX's parameters in JAX's positional
-order with JAX's defaults, the port's own (`device`, and `sampler` for
-JAX's PRNG `key`) after them, keyword-only on the entry points.  Both of
+order with JAX's defaults, the port's own (`device`, and a `sampler` that
+may draw in place of JAX's stream) after them, keyword-only on the entry
+points.  A PRNG key is JAX's, and a seed draws JAX's RANSAC triplets
+(`utils/prng.py`).  Both of
 the JAX package's Pallas kernels run here as hand-written CUDA for
 Hopper (`csrc/`); on CPU tensors their plain PyTorch versions run
 instead.

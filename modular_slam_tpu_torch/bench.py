@@ -18,9 +18,11 @@ to the first chunk.
 
 What differs from `bench.py`, and why:
 
-- `key` becomes the port's `sampler` (a RANSAC triplet sampler, default
-  `MultinomialSampler(0)`); the port's `device` (default "cuda",
-  RuntimeError without a CUDA device) and `sampler` are keyword-only.
+- The RANSAC draws are JAX's: the keys are split as `bench.py` splits
+  them (utils/prng.py).  The port's `sampler` (a RANSAC triplet sampler,
+  ops/pnp.py) draws in their place when given; it and the port's
+  `device` (default "cuda", RuntimeError without a CUDA device) are
+  keyword-only.
 - A timed region ends in one `torch.cuda.synchronize()`, the JAX
   `block_until_ready`; nothing inside it waits for the card.
 - The stage probes: JAX runs each stage inside one `lax.scan` over 64
@@ -68,8 +70,8 @@ import torch
 
 from modular_slam_tpu_torch.engine import _resolve_device, make_slam_scan
 from modular_slam_tpu_torch.io.tum import rgb_to_luma
-from modular_slam_tpu_torch.ops.pnp import MultinomialSampler
 from modular_slam_tpu_torch.utils.device import upload
+from modular_slam_tpu_torch.utils.prng import prng_key, split
 
 N_FRAMES = 67
 WARMUP = 3
@@ -233,6 +235,26 @@ def bench_startup(cfg, frames, *, device="cuda") -> float:
     return dt
 
 
+class _Every:
+    """A sampler that also stands for a sequence of keys: `[i]` and
+    `[lo:hi]` give it back, and it draws as the sampler it wraps."""
+
+    def __init__(self, sampler):
+        self.sampler = sampler
+
+    def __getitem__(self, i):
+        return self
+
+    def __call__(self, valid, n_hyp):
+        return self.sampler(valid, n_hyp)
+
+
+def _keys(sampler, n: int):
+    """`split(PRNGKey(0), n)`, as `bench.py` keys its frames, or the given
+    sampler in every key's place."""
+    return split(prng_key(0), n) if sampler is None else _Every(sampler)
+
+
 def bench_ours_tracking(cfg, frames, *, device="cuda", sampler=None,
                         detail: Optional[dict] = None) -> float:
     """Tracking-only chunked path (detect + match + PnP + arena), frames/s.
@@ -251,12 +273,12 @@ def bench_ours_tracking(cfg, frames, *, device="cuda", sampler=None,
 
     arena = empty_arena(cfg.map, dev)
     state = initial_state(dev)
-    sampler = sampler or MultinomialSampler(0)
+    keys = _keys(sampler, len(frames))
     grays, depths, times = _stage_frames(frames, device=dev)
 
     def chunk(a, s, lo, hi):
         return scan(a, s, grays[lo:hi], depths[lo:hi], times[lo:hi],
-                    sampler, bootstrap=lo == 0)
+                    keys[lo:hi], bootstrap=lo == 0)
 
     # warmup (bootstrap + both chunk shapes)
     arena, state, _ = chunk(arena, state, 0, WARMUP)
@@ -347,7 +369,6 @@ def bench_stages(cfg, frames, *, device="cuda", sampler=None) -> dict:
 
     dev = _resolve_device(device)
     cam = camera_from_config(cfg.camera, dev)
-    sampler = sampler or MultinomialSampler(0)
     n0 = PROBE_FRAMES
     grays0, depths0, times0 = _stage_frames(frames[WARMUP:WARMUP + n0],
                                             device=dev)
@@ -355,6 +376,7 @@ def bench_stages(cfg, frames, *, device="cuda", sampler=None) -> dict:
     grays = torch.cat([grays0, grays0])
     depths = torch.cat([depths0, depths0])
     times = torch.cat([times0, times0 + 100.0])
+    keys = _keys(sampler, n)
     busy, in_profile = {}, {}
 
     def timed(name, run, prepare=tuple, per=n):
@@ -392,14 +414,14 @@ def bench_stages(cfg, frames, *, device="cuda", sampler=None) -> dict:
     scan_f = make_slam_scan(cfg, with_features=True, device=dev)
     arena, state, (_, feats) = scan_f(
         empty_arena(cfg.map, dev), initial_state(dev), grays, depths, times,
-        sampler, bootstrap=True)
+        keys, bootstrap=True)
     _sync(dev)
 
     def run_step(a, s):
         out = []
         for i in range(n):
             f = detect(grays[i], depths[i], cfg.detector)
-            a, s, r = track_frame(a, s, f, cam, cfg, times[i], sampler,
+            a, s, r = track_frame(a, s, f, cam, cfg, times[i], keys[i],
                                   bootstrap=False)
             out.append(r.n_inliers)
         return torch.stack(out)
@@ -412,7 +434,7 @@ def bench_stages(cfg, frames, *, device="cuda", sampler=None) -> dict:
         out = []
         for i in range(n):
             a, s, r = track_frame(a, s, feats[i], cam, cfg, times[i],
-                                  sampler, bootstrap=False)
+                                  keys[i], bootstrap=False)
             out.append(r.n_inliers)
         return torch.stack(out)
 
@@ -645,7 +667,7 @@ def _warm_closure_chain(system, cfg, dev) -> None:
     from modular_slam_tpu_torch.map.lifecycle import fuse_duplicate_landmarks
 
     lp = system._loop
-    warm = MultinomialSampler(0)      # leaves the system's draws alone
+    warm = prng_key(0)                # leaves the system's key alone
     k = cfg.loop.top_k
     lp._verify_slots(_clone(system.arena),
                      torch.zeros((k,), dtype=torch.float32, device=dev),

@@ -35,10 +35,12 @@ from modular_slam_tpu_torch.map.lifecycle import (compact_arena,
                                                   cull_landmarks,
                                                   evict_keyframes)
 from modular_slam_tpu_torch.ops.detector import detect
-from modular_slam_tpu_torch.ops.pnp import MultinomialSampler, Sampler
+from modular_slam_tpu_torch.ops.pnp import Sampler
 from modular_slam_tpu_torch.types import Features, TrackResult
 from modular_slam_tpu_torch.utils.device import upload
 from modular_slam_tpu_torch.utils.params import ParameterRegistry
+from modular_slam_tpu_torch.utils.prng import (device_uniforms, prng_key,
+                                               split)
 
 Tensor = torch.Tensor
 
@@ -74,8 +76,9 @@ def _resolve(cfg: SlamConfig, components):
 def make_slam_step(cfg: SlamConfig, components=None, *,
                    device="cuda") -> Callable:
     """The per-frame engine step for a static config:
-    slam_step(arena, state, gray, depth, time, sampler, bootstrap=None)
-        -> (arena, state, result, features).
+    slam_step(arena, state, gray, depth, time, key, bootstrap=None)
+        -> (arena, state, result, features),
+    `key` the frame's PRNG key (utils/prng.py; or a stand-in, ops/pnp.py).
     `bootstrap` says whether the arena is empty (read from it when None);
     given, the step reads nothing back from the device.  `components`
     (models/components.Components) injects the detector, matcher and pnp;
@@ -84,11 +87,11 @@ def make_slam_step(cfg: SlamConfig, components=None, *,
     detect_fn, match_fn, pnp_fn = _resolve(cfg, components)
 
     def slam_step(arena: MapArena, state: TrackState, gray: Tensor,
-                  depth: Tensor, time: Tensor, sampler: Sampler,
+                  depth: Tensor, time: Tensor, key,
                   bootstrap: Optional[bool] = None):
         feats = detect_fn(gray, depth)
         arena, state, result = track_frame(
-            arena, state, feats, cam, cfg, time, sampler,
+            arena, state, feats, cam, cfg, time, key,
             match_fn=match_fn, pnp_fn=pnp_fn, bootstrap=bootstrap)
         return arena, state, result, feats
 
@@ -116,14 +119,20 @@ def make_slam_scan(cfg: SlamConfig, components=None, with_features=False,
     """The chunked step (the JAX `make_slam_scan`), with `components` as
     in `make_slam_step`:
     fn(arena, state, [db,] grays [C,H,W], depths [C,H,W], times [C],
-       sampler, bootstrap=False) -> (arena, state, stacked TrackResult), or
-    (arena, state, (stacked TrackResult, [C] per-frame Features)) with
-    `with_features`.  `bootstrap` says the arena is empty before the
-    chunk's first frame.
+       keys [C, 2], bootstrap=False) -> (arena, state, stacked
+    TrackResult), or (arena, state, (stacked TrackResult, [C] per-frame
+    Features)) with `with_features`.  `bootstrap` says the arena is empty
+    before the chunk's first frame.
 
     The frames run through the per-frame step in a Python loop that reads
     nothing back from the device: the JAX `lax.scan` becomes a queue of
-    kernel launches, fetched once by the caller.
+    kernel launches, fetched once by the caller.  Each frame splits its
+    key as the JAX scan does, `k_track, k_reloc = split(key)`: the tracker
+    draws from k_track, the relocalizer from k_reloc's chained splits
+    (loop/relocalizer.candidate_keys).  All the chunk's uniforms, the
+    relocalizer's included, are made on the host before the first frame
+    and go to the device in one upload.  A sampler in place of `keys`
+    (ops/pnp.py) draws every triplet itself.
 
     `reloc_vocab` ([V, 256] ±1 int8, the BoW codebook) adds in-scan
     relocalization: the fn takes the keyframe database `db`
@@ -138,24 +147,45 @@ def make_slam_scan(cfg: SlamConfig, components=None, with_features=False,
     cam = camera_from_config(cfg.camera, dev)
     detect_fn, match_fn, pnp_fn = _resolve(cfg, components)
     reloc_fn = None
+    top_k = 0
     if reloc_vocab is not None:
-        from modular_slam_tpu_torch.loop.relocalizer import make_relocalizer
+        from modular_slam_tpu_torch.loop.relocalizer import (
+            candidate_keys, make_relocalizer)
 
         reloc_fn = make_relocalizer(cfg, reloc_vocab)
+        top_k = cfg.loop.top_k
 
-    def frames(arena, state, db, grays, depths, times, sampler, bootstrap):
+    def frame_draws(keys, C):
+        """[(tracker's key, relocalizer's keys)] of the C frames: their
+        `Uniforms`, made from keys [C, 2] in one upload."""
+        if callable(keys):
+            return [(keys, keys)] * C
+        if np.shape(keys) != (C, 2):
+            raise ValueError(f"keys of shape {np.shape(keys)} for {C} "
+                             f"frames; expected ({C}, 2)")
+        pairs = split(keys)                     # [C, (k_track, k_reloc), 2]
+        per_frame = pairs[:, :1]
+        if top_k:
+            per_frame = np.concatenate(
+                [per_frame, candidate_keys(pairs[:, 1], top_k)], axis=1)
+        u = device_uniforms(per_frame, cfg.pnp.n_hypotheses, dev)
+        return [(u[i, 0], u[i, 1:]) for i in range(C)]
+
+    def frames(arena, state, db, grays, depths, times, keys, bootstrap):
         results, feats_all = [], []
         no = torch.zeros((), dtype=torch.bool, device=dev)
+        draws = frame_draws(keys, grays.shape[0])
         for i in range(grays.shape[0]):
+            k_track, k_reloc = draws[i]
             feats = detect_fn(grays[i], depths[i])
             arena, state, result = track_frame(
-                arena, state, feats, cam, cfg, times[i], sampler,
+                arena, state, feats, cam, cfg, times[i], k_track,
                 bootstrap=bootstrap and i == 0, match_fn=match_fn,
                 pnp_fn=pnp_fn)
             if reloc_fn is not None:
                 relocd = no
                 if not bool(result.tracking_ok):   # the frame's host read
-                    ok, pose, slot, _ = reloc_fn(arena, db, feats, sampler)
+                    ok, pose, slot, _ = reloc_fn(arena, db, feats, k_reloc)
                     state = TrackState(
                         pose=Pose(q=torch.where(ok, pose.q, state.pose.q),
                                   t=torch.where(ok, pose.t, state.pose.t)),
@@ -172,14 +202,14 @@ def make_slam_scan(cfg: SlamConfig, components=None, with_features=False,
         return arena, state, ((out, feats_all) if with_features else out)
 
     if reloc_fn is None:
-        def slam_scan(arena, state, grays, depths, times, sampler,
+        def slam_scan(arena, state, grays, depths, times, keys,
                       bootstrap=False):
-            return frames(arena, state, None, grays, depths, times, sampler,
+            return frames(arena, state, None, grays, depths, times, keys,
                           bootstrap)
     else:
-        def slam_scan(arena, state, db, grays, depths, times, sampler,
+        def slam_scan(arena, state, db, grays, depths, times, keys,
                       bootstrap=False):
-            return frames(arena, state, db, grays, depths, times, sampler,
+            return frames(arena, state, db, grays, depths, times, keys,
                           bootstrap)
     return slam_scan
 
@@ -248,10 +278,13 @@ class SlamSystem:
     `device` (default "cuda"; RuntimeError when there is no CUDA device)
     holds the map arena, the tracking state and every per-frame tensor; on
     "cuda" the FAST and Hamming 2-NN kernels run, on "cpu" their plain
-    versions.  `sampler(valid, n_hyp) -> [n_hyp, 3]` draws the RANSAC
-    triplets: once per tracked frame, and once per candidate of each loop
-    verification and relocalization attempt; the default is a
-    `MultinomialSampler(seed)`.
+    versions.  As in the JAX engine, `PRNGKey(seed)` is split once per
+    frame (once per chunk on the chunked path), per loop keyframe and per
+    relocalization attempt, and the RANSAC triplets are JAX's draws from
+    those keys (utils/prng.py): a seed takes the JAX engine's decisions.
+    `sampler(valid, n_hyp) -> [n_hyp, 3]`, when given, draws every triplet
+    in their place; the keys are split all the same, so a checkpoint
+    carries the key JAX's would.
 
     As in the JAX engine, local BA runs every `ba_every` new keyframes
     (`enable_backend`), inline (`ba_mode="sync"`) or solved on the CPU
@@ -292,7 +325,8 @@ class SlamSystem:
         self.cam = camera_from_config(self.cfg.camera, self.device)
         self.arena: MapArena = empty_arena(self.cfg.map, self.device)
         self.state: TrackState = initial_state(self.device)
-        self.sampler: Sampler = sampler or MultinomialSampler(seed)
+        self._key = prng_key(seed)
+        self.sampler: Optional[Sampler] = sampler
         # registry-selected components; the names are kept so a parameter
         # change rebuilds the same selection (imported here: the models
         # package imports this module)
@@ -388,13 +422,22 @@ class SlamSystem:
             self._has_map = int(self.arena.n_kf) > 0
         return not self._has_map
 
+    def _next_key(self, num: Optional[int] = None):
+        """Split the system's key as the JAX engine does before each use:
+        -> the subkey (`num` keys split from it, for a chunk), or the
+        injected sampler in their place."""
+        self._key, sub = split(self._key)
+        if self.sampler is not None:
+            return self.sampler
+        return sub if num is None else split(sub, num)
+
     def process(self, rgb: np.ndarray, depth: np.ndarray,
                 timestamp: float) -> SlamResult:
         self._flush_pending_chunk()        # a deferred chunk, if mixing paths
         frame = frame_to_device(rgb, depth, timestamp, self.device)
         self.arena, self.state, result, feats = self._step(
             self.arena, self.state, frame.gray, frame.depth,
-            frame.timestamp, self.sampler, self._bootstrap_next())
+            frame.timestamp, self._next_key(), self._bootstrap_next())
         self._has_map = True
         self.last_features = feats
         self.results.append(result)
@@ -408,7 +451,7 @@ class SlamSystem:
                 # window merged after a pose-graph correction would undo it
                 self._harvest_ba()
                 self.arena, self.state, closed = self._loop.on_new_keyframe(
-                    self.arena, self.state, kf_slot, feats, self.sampler,
+                    self.arena, self.state, kf_slot, feats, self._next_key(),
                     run_loop_detection=self.enable_loop_closure)
                 if closed:
                     self.n_loop_closures += 1
@@ -423,7 +466,7 @@ class SlamSystem:
         if (not tracking_ok and self.enable_relocalization
                 and self._loop is not None):
             new_state, ok = self._loop.relocalize(self.arena, self.state,
-                                                  feats, self.sampler)
+                                                  feats, self._next_key())
             if ok:
                 self.state = new_state
                 self.n_relocalizations += 1
@@ -594,6 +637,7 @@ class SlamSystem:
                                         reloc_vocab=vocab,
                                         device=self.device)
             self._scan_takes_db = vocab is not None
+        keys = self._next_key(len(times_host))
         # merge the solve dispatched during the previous chunk before this
         # chunk's scan reads the arena
         self._harvest_ba()
@@ -620,7 +664,7 @@ class SlamSystem:
                     self._polish_burst -= 1
         db = (self._loop.db,) if self._scan_takes_db else ()
         self.arena, self.state, out = self._scan(
-            self.arena, self.state, *db, grays, deps, times, self.sampler,
+            self.arena, self.state, *db, grays, deps, times, keys,
             bootstrap=self._bootstrap_next())
         self._has_map = True
         results = out[0] if self._loop is not None else out
@@ -700,7 +744,8 @@ class SlamSystem:
                 # in-flight BA lands before any pose-graph correction
                 self._harvest_ba()
                 self.arena, self.state, closed = self._loop.on_new_keyframe(
-                    self.arena, self.state, kf_slot, feats[i], self.sampler,
+                    self.arena, self.state, kf_slot, feats[i],
+                    self._next_key(),
                     run_loop_detection=self.enable_loop_closure,
                     # pipelined: park the verification instead of reading
                     # it behind the chunk in flight
@@ -728,7 +773,7 @@ class SlamSystem:
                 try_frames.append(int(lost[0]))
             for fi in try_frames:
                 new_state, r_ok = self._loop.relocalize(
-                    self.arena, self.state, feats[fi], self.sampler)
+                    self.arena, self.state, feats[fi], self._next_key())
                 if r_ok:
                     self.state = new_state
                     self.n_relocalizations += 1

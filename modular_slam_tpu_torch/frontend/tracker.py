@@ -33,7 +33,7 @@ from modular_slam_tpu_torch.map.arena import (MapArena, add_keyframe,
                                               khop_keyframes,
                                               visible_landmarks)
 from modular_slam_tpu_torch.ops.match import dedupe_matches, match_descriptors
-from modular_slam_tpu_torch.ops.pnp import Sampler, ransac_pnp
+from modular_slam_tpu_torch.ops.pnp import ransac_pnp
 from modular_slam_tpu_torch.types import Features, TrackResult
 
 Tensor = torch.Tensor
@@ -99,7 +99,7 @@ def _bootstrap(arena: MapArena, state: TrackState, feats: Features,
 
 
 def _track(arena: MapArena, state: TrackState, feats: Features, cam: Camera,
-           cfg: SlamConfig, time: Tensor, sampler: Sampler,
+           cfg: SlamConfig, time: Tensor, key,
            match_fn=None, pnp_fn=None,
            ) -> Tuple[MapArena, TrackState, TrackResult]:
     kps = feats.keypoints
@@ -111,8 +111,8 @@ def _track(arena: MapArena, state: TrackState, feats: Features, cam: Camera,
         match_fn = lambda q, qv, t, tv: match_descriptors(  # noqa: E731
             q, qv, t, tv, cfg.matcher)
     if pnp_fn is None:
-        pnp_fn = lambda pw, uv, pc, v, init, s: ransac_pnp(  # noqa: E731
-            cam, pw, uv, pc, v, init, s, cfg.pnp)
+        pnp_fn = lambda pw, uv, pc, v, init, k: ransac_pnp(  # noqa: E731
+            cam, pw, uv, pc, v, init, k, cfg.pnp)
 
     # --- candidate landmarks: 2-hop covisibility of the reference KF ------
     kf_mask = khop_keyframes(arena, state.ref_kf, tcfg.covis_depth_tracking)
@@ -129,7 +129,7 @@ def _track(arena: MapArena, state: TrackState, feats: Features, cam: Camera,
     # --- PnP ---------------------------------------------------------------
     pts_world = arena.lm_pos[matches.lm_slot.long()]
     pts_cam = backproject(cam, kps.uv, kps.depth)
-    pnp = pnp_fn(pts_world, kps.uv, pts_cam, m_ok, state.pose, sampler)
+    pnp = pnp_fn(pts_world, kps.uv, pts_cam, m_ok, state.pose, key)
 
     enough = n_matches >= tcfg.min_matched_points
     ok = enough & pnp.ok
@@ -192,14 +192,15 @@ def _track(arena: MapArena, state: TrackState, feats: Features, cam: Camera,
 
 
 def track_frame(arena: MapArena, state: TrackState, feats: Features,
-                cam: Camera, cfg: SlamConfig, time: Tensor, sampler: Sampler,
+                cam: Camera, cfg: SlamConfig, time: Tensor, key,
                 match_fn=None, pnp_fn=None, *,
                 bootstrap: Optional[bool] = None,
                 ) -> Tuple[MapArena, TrackState, TrackResult]:
     """One frontend step: bootstrap on the first frame, track afterwards.
-    `sampler` draws the RANSAC triplets (ops/pnp.py) and is called once
-    per tracked frame.  `bootstrap` (keyword-only: the port's own
-    parameter) says whether the arena is empty (the JAX step's
+    `key` is the frame's PRNG key (utils/prng.py; or a stand-in,
+    ops/pnp.py), from which a tracked frame draws its RANSAC triplets.
+    `bootstrap` (keyword-only: the port's own parameter) says whether
+    the arena is empty (the JAX step's
     `arena.n_kf == 0`); when None it is read from the device, and
     otherwise the step reads nothing back.
 
@@ -209,5 +210,5 @@ def track_frame(arena: MapArena, state: TrackState, feats: Features,
         bootstrap = int(arena.n_kf) == 0
     if bootstrap:
         return _bootstrap(arena, state, feats, cam, cfg, time)
-    return _track(arena, state, feats, cam, cfg, time, sampler,
+    return _track(arena, state, feats, cam, cfg, time, key,
                   match_fn=match_fn, pnp_fn=pnp_fn)

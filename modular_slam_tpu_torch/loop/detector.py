@@ -16,9 +16,10 @@ Pallas matcher takes the batch as a grid dimension.  Here
 and one of its merge on a CUDA arena, comparing the same queries with the
 same landmark rows under one mask per candidate, with no copy of the rows.
 Dedupe and RANSAC-PnP then run per candidate; a 0-d slot, as the JAX
-function takes it, is verified as a batch of one.  The RANSAC draws come
-from a `sampler(valid, n_hyp)` argument, as in the tracker (ops/pnp.py),
-in place of the JAX key.
+function takes it, is verified as a batch of one.  Each candidate draws
+its RANSAC triplets from its own key, as under JAX's `vmap`: the
+candidates' draws go to the device in one upload and are mapped to rows
+in one batched mapping (utils/prng.py).
 """
 
 from __future__ import annotations
@@ -33,8 +34,9 @@ from modular_slam_tpu_torch.geometry.se3 import (Pose, pose_compose,
                                                  pose_inverse)
 from modular_slam_tpu_torch.map.arena import MapArena
 from modular_slam_tpu_torch.ops.match import dedupe_matches, match_descriptors
-from modular_slam_tpu_torch.ops.pnp import Sampler, ransac_pnp
+from modular_slam_tpu_torch.ops.pnp import _ransac_from_rows, draw_rows
 from modular_slam_tpu_torch.types import Features, Matches
+from modular_slam_tpu_torch.utils.prng import Uniforms, as_key
 
 Tensor = torch.Tensor
 
@@ -106,39 +108,58 @@ class LoopVerification(NamedTuple):
     # candidate's landmarks (world frame)
 
 
+def _one_key(key):
+    """A candidate's key as the key of a batch of one."""
+    if callable(key):
+        return key
+    if isinstance(key, Uniforms):
+        return Uniforms(key.u[None])
+    return as_key(key)[None]
+
+
 def geometric_verify(
     arena: MapArena,
     cand_kf: Tensor,
     feats: Features,
     cam: Camera,
     cfg: SlamConfig,
-    sampler: Sampler,
+    key,
 ) -> LoopVerification:
     """Match the query features against each candidate keyframe's landmarks
     and solve the query pose from them.  cand_kf [B] keyframe slots ->
     (ok [B], n_inliers [B], query poses [B]); a 0-d slot -> 0-d ok and
-    n_inliers and one pose."""
+    n_inliers and one pose.  `key` holds each candidate's PRNG key, [B, 2]
+    ([2] for a 0-d slot), or stands in for them (ops/pnp.py: their
+    `Uniforms`; a sampler, or a list of B samplers, drawing one mask at a
+    time)."""
     if cand_kf.dim() == 0:
         ok, n_inliers, pose = geometric_verify(arena, cand_kf[None], feats,
-                                               cam, cfg, sampler)
+                                               cam, cfg, _one_key(key))
         return LoopVerification(ok[0], n_inliers[0],
                                 Pose(q=pose.q[0], t=pose.t[0]))
     kps = feats.keypoints
     cand = cand_kf.long()
+    B = cand.shape[0]
     lm_mask = arena.inc[cand] & arena.lm_valid                 # [B, L]
     matches = match_descriptors(feats.descriptors.unpacked, kps.valid,
                                 arena.lm_desc, lm_mask, cfg.matcher)
     pts_cam = backproject(cam, kps.uv, kps.depth)
     # cold start from each candidate keyframe's pose (same place revisited)
     init_q, init_t = arena.kf_q[cand], arena.kf_t[cand]
+    deduped = [dedupe_matches(Matches(*(x[b] for x in matches)),
+                              arena.max_landmarks) for b in range(B)]
+    m_ok = [m.valid & (kps.depth > 0.0) for m in deduped]
+    n_hyp = cfg.pnp.n_hypotheses
+    if callable(key) or isinstance(key, list):
+        samplers = key if isinstance(key, list) else [key] * B
+        rows = [draw_rows(s, v, n_hyp) for s, v in zip(samplers, m_ok)]
+    else:
+        rows = draw_rows(key, torch.stack(m_ok), n_hyp)     # [B, H, 3]
     oks, inls, qs, ts = [], [], [], []
-    for b in range(cand.shape[0]):
-        m = dedupe_matches(Matches(*(x[b] for x in matches)),
-                           arena.max_landmarks)
-        m_ok = m.valid & (kps.depth > 0.0)
-        pnp = ransac_pnp(cam, arena.lm_pos[m.lm_slot.long()], kps.uv,
-                         pts_cam, m_ok, Pose(q=init_q[b], t=init_t[b]),
-                         sampler, cfg.pnp)
+    for b in range(B):
+        pnp = _ransac_from_rows(
+            cam, arena.lm_pos[deduped[b].lm_slot.long()], kps.uv, pts_cam,
+            m_ok[b], Pose(q=init_q[b], t=init_t[b]), rows[b], cfg.pnp)
         oks.append(pnp.ok & (pnp.n_inliers >= cfg.loop.min_inliers))
         inls.append(pnp.n_inliers)
         qs.append(pnp.pose.q)

@@ -69,8 +69,8 @@ from modular_slam_tpu_torch.loop.vocab import (bow_histogram,
 from modular_slam_tpu_torch.map.arena import MapArena
 from modular_slam_tpu_torch.map.lifecycle import (SlotRemaps,
                                                   fuse_duplicate_landmarks)
-from modular_slam_tpu_torch.ops.pnp import Sampler
 from modular_slam_tpu_torch.types import Features
+from modular_slam_tpu_torch.utils.prng import split
 
 Tensor = torch.Tensor
 
@@ -203,12 +203,14 @@ class LoopPipeline:
             covis_counts=covis, max_covis=lcfg.max_covis_overlap)
 
     def _verify_slots(self, arena: MapArena, scores: Tensor, slots: Tensor,
-                      feats: Features, sampler: Sampler):
+                      feats: Features, key):
         """Verification of all top-k query results in one dispatch, fed
-        from the query output on the device."""
+        from the query output on the device; candidate b draws from
+        `split(key, top_k)[b]`."""
         self.n_verify_dispatches += 1
+        keys = split(key, slots.shape[0])
         ok, inl, poses = geometric_verify(arena, torch.clamp(slots, min=0),
-                                          feats, self.cam, self.cfg, sampler)
+                                          feats, self.cam, self.cfg, keys)
         ok = ok & (slots >= 0) & (scores >= self.cfg.loop.min_score)
         return ok, inl, poses
 
@@ -224,11 +226,12 @@ class LoopPipeline:
 
     def on_new_keyframe(
         self, arena: MapArena, state: TrackState, kf_slot: int,
-        feats: Features, sampler: Sampler, run_loop_detection: bool = True,
+        feats: Features, key, run_loop_detection: bool = True,
         defer_closure: bool = False, counters=None,
     ) -> Tuple[MapArena, TrackState, bool]:
-        """Keyframe-rate loop work; -> (arena, state, closed).  `sampler`
-        draws the verification's RANSAC triplets (ops/pnp.py).
+        """Keyframe-rate loop work; -> (arena, state, closed).  `key` is
+        the keyframe's PRNG key (utils/prng.py), split as JAX splits it
+        for the verification's RANSAC draws.
 
         `defer_closure`: park the verification (query results, ok,
         inliers, poses; nothing read back) for `resolve_pending`, and
@@ -263,8 +266,9 @@ class LoopPipeline:
         if run_loop_detection and not in_cooldown:
             scores, slots = self._query(self.db, hist, kf_slot, arena)
             self._mark("query")
+            key, sub = split(key)
             ok_b, inl_b, poses_b = self._verify_slots(arena, scores, slots,
-                                                      feats, sampler)
+                                                      feats, sub)
             if defer_closure:
                 self._pending_verify.append(
                     (self._kf_counter, kf_slot, scores, slots, ok_b, inl_b,
@@ -469,11 +473,11 @@ class LoopPipeline:
 
     # ------------------------------------------------------------------
     def relocalize(self, arena: MapArena, state: TrackState, feats: Features,
-                   sampler: Sampler) -> Tuple[TrackState, bool]:
+                   key) -> Tuple[TrackState, bool]:
         """One relocalization attempt: -> (state at the recovered pose, or
         unchanged; whether it succeeded)."""
         self.n_reloc_attempts += 1
-        ok, pose, slot, _ = self._reloc(arena, self.db, feats, sampler)
+        ok, pose, slot, _ = self._reloc(arena, self.db, feats, key)
         if bool(ok):                      # the attempt's one host read
             return state._replace(pose=pose, ref_kf=slot, lost=~ok), True
         return state, False

@@ -9,11 +9,10 @@ Contracts (tensors on the engine's device, static shapes, masked):
   match(q_desc_pm1 [N,256], q_valid [N], lm_desc [L,256], lm_mask [L])
       -> Matches                        (raw; the tracker dedupes)
   pnp(pts_world [N,3], uv [N,2], pts_cam [N,3], valid [N],
-      init_pose, sampler) -> PnpResult
+      init_pose, key) -> PnpResult
 
-One contract departs from the JAX package's: `pnp` takes the engine's
-`Sampler` (ops/pnp.py: `sampler(valid, n_hyp) -> [n_hyp, 3]` triplet
-indices) where JAX passes a PRNG key.
+`key` is the frame's PRNG key (utils/prng.py), or a stand-in for it
+(ops/pnp.py: `prng.Uniforms`, or a `Sampler` that draws the triplets).
 """
 
 from __future__ import annotations

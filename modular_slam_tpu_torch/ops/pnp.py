@@ -7,15 +7,21 @@ parallel by reprojection + depth-agreement inlier counts; hypothesis 0 is
 the warm-start pose.  The best one is polished by damped Gauss-Newton on
 the hybrid residual (2D reprojection rows + a disparity-scaled depth row).
 
-The minimal-sample indices come from a `sampler(valid, n_hyp) ->
-[n_hyp, 3]` argument: `jax.random` draws cannot be reproduced in torch, so
-the parity tests replay the JAX draws through it, and `MultinomialSampler`
-is the default.
+The minimal samples are JAX's: `jax.random.choice(key, N, (n_hyp, 3),
+p=probs)` with probs = (valid + 1e-9) / sum, reproduced bit for bit by
+`utils/prng.choice_rows`, so that a key gives the triplets the JAX
+package draws from it on the CPU.  Two stand-ins may take the key's
+place: `prng.Uniforms`, the key's uniforms already on the device (a
+chunk's draws go up in one upload), and a `Sampler`, any callable
+`(valid, n_hyp) -> [n_hyp, 3]`, which draws the rows itself and replaces
+JAX's stream (the replay tools and tests; `MultinomialSampler` is one).
+`prng.split` of a sampler gives the sampler back, so it passes through
+every split of the engine.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -27,6 +33,7 @@ from modular_slam_tpu_torch.geometry.se3 import (Pose, _cross,
                                                  quat_conjugate,
                                                  quat_normalize, quat_rotate,
                                                  quat_to_matrix, se3_exp)
+from modular_slam_tpu_torch.utils.prng import choice_rows
 
 Tensor = torch.Tensor
 Sampler = Callable[[Tensor, int], Tensor]
@@ -40,18 +47,13 @@ class PnpResult(NamedTuple):
 
 
 class MultinomialSampler:
-    """Default RANSAC sampler: 3·n_hyp draws with replacement, uniform over
-    the valid rows (uniform over all rows when none is valid: the
-    probabilities of pnp.py:211-212).  The uniforms come from an explicit
-    CPU generator and are mapped to rows on the rows' device by an exact
-    integer inverse CDF (`uniform_rows`), so a seed gives the same
-    triplets for a CPU and a CUDA run of the same frames, and nothing is
-    read back from the card: the uniforms go to it from pinned memory
-    without waiting.  Duplicate indices within a triplet are degenerate
-    and score out, as in the JAX package.
-
-    `draw_batch` draws for B sequences at once, each from its own
-    sampler, and gives sequence b what that sampler alone would give."""
+    """A RANSAC sampler of its own stream, for a caller to pass in place
+    of a key: 3·n_hyp draws with replacement, uniform over the valid rows
+    (uniform over all rows when none is valid).  The uniforms come from an
+    explicit CPU generator and are mapped to rows on the rows' device by
+    an exact integer inverse CDF (`uniform_rows`), so a seed gives the
+    same triplets for a CPU and a CUDA run of the same frames, and nothing
+    is read back from the card."""
 
     def __init__(self, seed: int = 0):
         self.generator = torch.Generator(device="cpu")
@@ -63,21 +65,10 @@ class MultinomialSampler:
                           dtype=torch.float64)
 
     def __call__(self, valid: Tensor, n_hyp: int) -> Tensor:
-        return uniform_rows(_to_device(self.uniforms(n_hyp), valid.device),
-                            valid)
-
-    @staticmethod
-    def draw_batch(samplers, valid: Tensor, n_hyp: int) -> Tensor:
-        """valid [B, N] -> [B, n_hyp, 3]: samplers[b] draws for row b; one
-        upload and one mapping for the batch."""
-        u = torch.stack([s.uniforms(n_hyp) for s in samplers])
-        return uniform_rows(_to_device(u, valid.device), valid)
-
-
-def _to_device(u: Tensor, device) -> Tensor:
-    if torch.device(device).type == "cuda":
-        return u.pin_memory().to(device, non_blocking=True)
-    return u
+        u = self.uniforms(n_hyp)
+        if valid.device.type == "cuda":
+            u = u.pin_memory().to(valid.device, non_blocking=True)
+        return uniform_rows(u, valid)
 
 
 def uniform_rows(u: Tensor, valid: Tensor) -> Tensor:
@@ -92,6 +83,15 @@ def uniform_rows(u: Tensor, valid: Tensor) -> Tensor:
     j = torch.floor(u * torch.where(none, N, n)[..., None]).to(torch.int64)
     rows = torch.searchsorted(cdf, j.reshape(*j.shape[:-2], -1), right=True)
     return rows.reshape(j.shape).clamp(max=N - 1)
+
+
+def draw_rows(key, valid: Tensor, n_hyp: int) -> Tensor:
+    """The minimal samples [..., n_hyp, 3] (int64) for masks valid
+    [..., N]: JAX's draws for keys [..., 2] or their `prng.Uniforms`; a
+    `Sampler` in the key's place draws them itself, one mask at a time."""
+    if callable(key):
+        return key(valid, n_hyp).long()
+    return choice_rows(key, valid, n_hyp)
 
 
 def _triad(p1: Tensor, p2: Tensor, p3: Tensor) -> Tensor:
@@ -195,16 +195,28 @@ def _gauss_newton_polish(cam: Camera, pose0: Pose, pts_world: Tensor,
 
 
 def ransac_pnp(cam: Camera, pts_world: Tensor, uv: Tensor, pts_cam: Tensor,
-               valid: Tensor, initial: Pose, sampler: Sampler,
-               cfg: PnpConfig) -> PnpResult:
+               valid: Tensor, initial: Pose, key, cfg: PnpConfig, *,
+               sampler: Optional[Sampler] = None) -> PnpResult:
     """pts_world [N, 3] matched landmarks, uv [N, 2] observed pixels,
     pts_cam [N, 3] depth-backprojected observations, valid [N] usable
-    matches, initial the warm-start pose."""
+    matches, initial the warm-start pose, key the PRNG key [2] (or a
+    stand-in, see the module's docstring).  `sampler`, when given, draws
+    the triplets in place of the key's stream."""
+    n = cfg.n_hypotheses
+    idx = (draw_rows(key, valid, n) if sampler is None
+           else sampler(valid, n).long())                     # [H, 3]
+    return _ransac_from_rows(cam, pts_world, uv, pts_cam, valid, initial,
+                             idx, cfg)
+
+
+def _ransac_from_rows(cam: Camera, pts_world: Tensor, uv: Tensor,
+                      pts_cam: Tensor, valid: Tensor, initial: Pose,
+                      idx: Tensor, cfg: PnpConfig) -> PnpResult:
+    """`ransac_pnp` on minimal samples already drawn, idx [H, 3]."""
     thresh2 = cfg.inlier_threshold_px ** 2
     nvalid = torch.sum(valid.to(torch.int32), dtype=torch.int32)
 
     # --- hypothesis generation -------------------------------------------
-    idx = sampler(valid, cfg.n_hypotheses).long()             # [H, 3]
     hyp = _align3(pts_cam[idx], pts_world[idx])
     hyp = Pose(q=torch.cat([initial.q[None], hyp.q]),
                t=torch.cat([initial.t[None], hyp.t]))

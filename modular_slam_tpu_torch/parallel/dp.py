@@ -21,12 +21,12 @@ r's entry is sequence r * B / groups + b), results are concatenated on
 the first group's device.  An `axis` that is not one of
 `mesh.axis_names` raises ValueError, as JAX's `P(axis)` does.
 
-RANSAC draws: `samplers` holds one sampler per sequence, and sequence b
-draws exactly what samplers[b] would draw for it alone (JAX splits a key
-per sequence).  The samplers are of one class, whose
-`draw_batch(samplers, valid [B, N], n_hyp)` draws for the batch at once:
-`MultinomialSampler`'s draws the uniforms on the host and maps them to
-rows on the device in one batched mapping.
+RANSAC draws: as in JAX, sequence b draws from its own key, keys[b] of
+the step's [B, 2] (of the scan's [C, B, 2]), what a single-sequence step
+draws from that key.  The uniforms of all the keys are made on the host
+and go to the device in one upload per call (utils/prng.py), and the
+vmapped step maps them to rows against the batch's masks in one batched
+mapping.
 
 The bootstrap is a host flag, as in the port's engine: the first batched
 frame bootstraps every sequence.  Like the JAX step, the arenas are
@@ -35,8 +35,7 @@ updated in place (map/arena.py).
 
 from __future__ import annotations
 
-import functools
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +46,7 @@ from modular_slam_tpu_torch.frontend.tracker import TrackState, initial_state
 from modular_slam_tpu_torch.map.arena import MapArena, empty_arena
 from modular_slam_tpu_torch.parallel.mesh import Mesh
 from modular_slam_tpu_torch.types import TrackResult
+from modular_slam_tpu_torch.utils.prng import Uniforms, device_uniforms
 
 Tensor = torch.Tensor
 
@@ -83,34 +83,15 @@ def row_groups(mesh: Mesh, batch: int, axis: str = "seq"
             for g in range(groups)]
 
 
-class _Sample(torch.autograd.Function):
-    """The RANSAC draw inside the vmapped step.  A sampler takes one
-    sequence's mask; under `torch.func.vmap` this function's rule gets
-    the batch's masks [B, N] as one tensor and calls `draw` once."""
-
-    generate_vmap_rule = False
-
-    @staticmethod
-    def forward(valid, n_hyp, draw):
-        return draw(valid[None], n_hyp)[0]
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def vmap(info, in_dims, valid, n_hyp, draw):
-        return draw(valid.movedim(in_dims[0], 0), n_hyp), 0
-
-
-def _batch_draw(samplers: Sequence) -> Callable:
-    """(valid [B, N], n_hyp) -> [B, n_hyp, 3], samplers[b] for row b:
-    the samplers' class's `draw_batch`."""
-    kind = type(samplers[0])
-    if any(type(s) is not kind for s in samplers) \
-            or not hasattr(kind, "draw_batch"):
-        raise TypeError("samplers of one class with draw_batch expected")
-    return functools.partial(kind.draw_batch, samplers)
+def _draws(keys, shape: Tuple[int, ...], n_hyp: int, device) -> Uniforms:
+    """The uniforms of keys [*shape, 2], in one upload; `Uniforms` are
+    taken as they are."""
+    if isinstance(keys, Uniforms):
+        return keys
+    if np.shape(keys) != (*shape, 2):
+        raise ValueError(f"keys of shape {np.shape(keys)}; expected "
+                         f"{(*shape, 2)}")
+    return device_uniforms(keys, n_hyp, device)
 
 
 def make_batch_init(cfg: SlamConfig, mesh: Mesh, batch: int,
@@ -134,42 +115,37 @@ def make_batch_slam_step(cfg: SlamConfig, mesh: Mesh,
                          axis: str = "seq") -> Callable:
     """The batched step:
     step(arenas, states, grays [B,H,W], depths [B,H,W], times [B],
-         samplers, bootstrap=False) -> (arenas, states, results [B]),
+         keys [B, 2], bootstrap=False) -> (arenas, states, results [B]),
     the batch split along the grid's `axis`.  Frames are moved to each
     group's device (a no-op where they are).  Reads nothing back from the
     device."""
     _axis_index(mesh, axis)             # an unknown axis raises here
     steps = {}
 
-    def group(dev, arena, state, gray, depth, time, samplers, bootstrap):
+    def group(dev, arena, state, gray, depth, time, u, bootstrap):
         if dev not in steps:
             steps[dev] = make_slam_step(cfg, device=dev)
-        draw = _batch_draw(samplers)
 
-        def sampler(valid, n_hyp):
-            return _Sample.apply(valid, n_hyp, draw)
-
-        def one(arena, state, gray, depth, time):
+        def one(arena, state, gray, depth, time, u):
             arena, state, result, _ = steps[dev](arena, state, gray, depth,
-                                                 time, sampler,
+                                                 time, Uniforms(u),
                                                  bootstrap=bootstrap)
             return arena, state, tuple(result)[:-1]   # no `relocalized`
 
         arena, state, result = torch.func.vmap(one)(arena, state, gray,
-                                                    depth, time)
+                                                    depth, time, u)
         return arena, state, TrackResult(*result)
 
-    def step(arenas, states, grays, depths, times, samplers,
+    def step(arenas, states, grays, depths, times, keys,
              bootstrap: bool = False):
-        if len(samplers) != times.shape[0]:
-            raise ValueError(f"{len(samplers)} samplers for a batch of "
-                             f"{times.shape[0]}")
+        u = _draws(keys, (times.shape[0],), cfg.pnp.n_hypotheses,
+                   times.device).u
         out_a, out_s, results = [], [], []
         for r, (dev, sl) in enumerate(row_groups(mesh, times.shape[0],
                                                  axis)):
             a, s, res = group(dev, arenas[r], states[r], grays[sl].to(dev),
                               depths[sl].to(dev), times[sl].to(dev),
-                              samplers[sl], bootstrap)
+                              u[sl].to(dev), bootstrap)
             out_a.append(a)
             out_s.append(s)
             results.append(res)
@@ -184,19 +160,22 @@ def make_batch_slam_scan(cfg: SlamConfig, mesh: Mesh,
                          axis: str = "seq") -> Callable:
     """C frames of B sequences:
     fn(arenas, states, grays [C,B,H,W], depths [C,B,H,W], times [C,B],
-       samplers, bootstrap=False) -> (arenas, states, results [C,B]).
+       keys [C,B,2], bootstrap=False) -> (arenas, states, results [C,B]).
     A Python loop of the batched step that reads nothing back, as
-    `engine.make_slam_scan` is for one sequence; `bootstrap` says the
-    arenas are empty before the chunk's first frame; the batch splits
-    along `axis` as in `make_batch_slam_step`."""
+    `engine.make_slam_scan` is for one sequence, with the uniforms of all
+    C x B keys uploaded once before it; `bootstrap` says the arenas are
+    empty before the chunk's first frame; the batch splits along `axis`
+    as in `make_batch_slam_step`."""
     step = make_batch_slam_step(cfg, mesh, axis)
 
-    def scan(arenas, states, grays, depths, times, samplers,
+    def scan(arenas, states, grays, depths, times, keys,
              bootstrap: bool = False):
+        draws = _draws(keys, tuple(times.shape), cfg.pnp.n_hypotheses,
+                       times.device)
         results = []
         for i in range(grays.shape[0]):
             arenas, states, r = step(arenas, states, grays[i], depths[i],
-                                     times[i], samplers, bootstrap and i == 0)
+                                     times[i], draws[i], bootstrap and i == 0)
             results.append(r)
         return arenas, states, _stack_results(results)
 

@@ -7,8 +7,11 @@ Runs B independent sequences lock-step through the batched step
 per-sequence trajectories and the scaling-efficiency metric
 throughput(B sequences on N devices) / (N * throughput(1 sequence)).
 
-Sequence b draws its RANSAC hypotheses from `MultinomialSampler(seed +
-b)`, the triplets a single-sequence run with that sampler draws.
+The keys are JAX's: `PRNGKey(seed)` is split once per call, and the
+subkey into one key per sequence and frame (`split(sub, C * B)`, [C, B]),
+so that sequence b draws the triplets the JAX runner's sequence b draws.
+A full chunk is one call; the frames left after the last full chunk go
+one by one, as in JAX.
 """
 
 from __future__ import annotations
@@ -23,12 +26,12 @@ from modular_slam_tpu_torch.config import SlamConfig
 from modular_slam_tpu_torch.engine import _resolve_device
 from modular_slam_tpu_torch.geometry.se3 import Pose
 from modular_slam_tpu_torch.io.tum import rgb_to_luma
-from modular_slam_tpu_torch.ops.pnp import MultinomialSampler
 from modular_slam_tpu_torch.parallel.dp import (make_batch_init,
                                                 make_batch_slam_scan,
                                                 row_groups)
 from modular_slam_tpu_torch.parallel.mesh import make_mesh
 from modular_slam_tpu_torch.utils.device import upload
+from modular_slam_tpu_torch.utils.prng import prng_key, split
 
 
 class MultiSequenceRunner:
@@ -46,7 +49,7 @@ class MultiSequenceRunner:
         self._groups = row_groups(self.mesh, batch)
         self._scan = make_batch_slam_scan(cfg, self.mesh)
         self.arenas, self.states = make_batch_init(cfg, self.mesh, batch)
-        self.samplers = [MultinomialSampler(seed + b) for b in range(batch)]
+        self._key = prng_key(seed)
         self._bootstrapped = False
         self.trajectories: List[List[Tuple[float, Pose]]] = [
             [] for _ in range(batch)]
@@ -64,7 +67,8 @@ class MultiSequenceRunner:
 
     def process_batch(self, grays, depths, times) -> None:
         """One frame of every sequence: grays/depths [B, H, W] float32;
-        times [B]."""
+        times [B].  A chunk of one frame: its keys `split(sub, 1 * B)` are
+        JAX's `split(sub, B)`."""
         self.process_chunk(np.asarray(grays)[None], np.asarray(depths)[None],
                            np.asarray(times)[None])
 
@@ -72,9 +76,12 @@ class MultiSequenceRunner:
         """C frames of every sequence, queued without a host read:
         grays/depths [C, B, H, W] float32; times [C, B]."""
         times = np.asarray(times, np.float32)
+        C = times.shape[0]
+        self._key, sub = split(self._key)
+        keys = split(sub, C * self.batch).reshape(C, self.batch, 2)
         self.arenas, self.states, results = self._scan(
             self.arenas, self.states, self._upload(grays),
-            self._upload(depths), self._upload(times), self.samplers,
+            self._upload(depths), self._upload(times), keys,
             self._bootstrap())
         self._collect(results, times, times.shape[0])
 
@@ -97,8 +104,8 @@ class MultiSequenceRunner:
     def run(self, sequences: Sequence, max_frames: int | None = None) -> dict:
         """sequences: B iterables of (rgb, depth, ts).  Frames are staged
         on the host once (luma as `io.tum.rgb_to_luma` computes it), then
-        dispatched `chunk` frames at a time, the last chunk possibly
-        shorter."""
+        dispatched `chunk` frames at a time; the frames after the last
+        full chunk go one by one (`process_batch`)."""
         iters = [list(s) for s in sequences]
         n = min(len(s) for s in iters)
         if max_frames is not None:
@@ -113,9 +120,13 @@ class MultiSequenceRunner:
                          np.float32)                         # [n, B]
 
         t0 = time.perf_counter()
-        for lo in range(0, n, self.chunk):
+        lo = 0
+        while lo + self.chunk <= n:
             hi = lo + self.chunk
             self.process_chunk(grays[lo:hi], depths[lo:hi], times[lo:hi])
+            lo = hi
+        for i in range(lo, n):
+            self.process_batch(grays[i], depths[i], times[i])
         for dev, _ in self._groups:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)

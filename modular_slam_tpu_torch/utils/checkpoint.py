@@ -6,15 +6,17 @@ tracking state (`state.*`), the loop database (`loopdb.*`), the pose-graph
 edges (`edges.*`), the loop counters and closure-cooldown state
 (`loop.*`), the BoW codebook (`loop.vocab`), the engine counters
 (`counters`), the runtime parameters (`params_json`), the trajectory
-(`trajectory`, rows t x y z qw qx qy qz) and an echo of the config
-(`config_json`), so the port loads the JAX package's checkpoints.
+(`trajectory`, rows t x y z qw qx qy qz), the PRNG key (`key`, uint32[2])
+and an echo of the config (`config_json`).  The port loads the JAX
+package's checkpoints and the JAX package loads the port's; either
+resumes on the saved key, so the resumed run draws what the saving
+engine would have drawn next.
 
-One key departs: the port writes `sampler_state`, the CPU generator state
-of its `MultinomialSampler`, where JAX writes its PRNG `key` (which the
-JAX loader requires, so it does not load the port's files).  A checkpoint
-written by the JAX package has no `sampler_state`, and loading it keeps
-the port's sampler as it was seeded.  A sampler without a generator (an
-injected one) is neither saved nor restored.
+A file the port wrote before it carried JAX's key (it has a
+`sampler_state`, the state of the sampler that stood in for the key then,
+and no `key`) still loads: the system keeps the key of its own seed, and
+`sampler_state` is ignored.  An injected sampler is neither saved nor
+restored.
 
 Tensors load onto `system.device`, so a checkpoint written on the card
 loads into a CPU system and the other way round.
@@ -65,9 +67,7 @@ def save_checkpoint(path: str, system) -> None:
     out: Dict[str, np.ndarray] = {}
     _flatten("arena.", system.arena, out)
     _flatten("state.", system.state, out)
-    gen = getattr(system.sampler, "generator", None)
-    if gen is not None:
-        out["sampler_state"] = gen.get_state().numpy()
+    out["key"] = np.asarray(system._key, np.uint32)
     lp = system._loop
     if lp is not None:
         _flatten("loopdb.", lp.db, out)
@@ -131,9 +131,8 @@ def _restore(data, system) -> None:
     system._scan_takes_db = False
     system._prev_counters = None
     system._chunk_growth = (0, 0, 0)
-    gen = getattr(system.sampler, "generator", None)
-    if gen is not None and "sampler_state" in data:
-        gen.set_state(torch.from_numpy(np.array(data["sampler_state"])))
+    if "key" in data:
+        system._key = conv.key_from_numpy(data["key"])
     lp = system._loop
     if lp is not None and "loopdb.hists" in data:
         if "loop.vocab" in data:

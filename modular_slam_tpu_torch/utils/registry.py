@@ -115,8 +115,8 @@ def _register_builtins() -> None:
                     width=c.width, height=c.height)
             return cams[device]
 
-        return lambda pw, uv, pc, v, init, sampler: ransac_pnp(
-            camera(pw.device), pw, uv, pc, v, init, sampler, cfg.pnp)
+        return lambda pw, uv, pc, v, init, key: ransac_pnp(
+            camera(pw.device), pw, uv, pc, v, init, key, cfg.pnp)
 
     @register("data_provider", "tum_files")
     def _tum(cfg, root):

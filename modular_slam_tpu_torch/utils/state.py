@@ -10,6 +10,7 @@ functions return nested dicts of numpy arrays with the JAX field names
 and dtypes, from which the JAX NamedTuples are rebuilt with `**`.
 
 `Descriptors.packed` is uint32 in JAX and int32 here, with the same bits.
+A PRNG key is a uint32[2] numpy array in both (`key_from_numpy`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from modular_slam_tpu_torch.geometry.se3 import Pose
 from modular_slam_tpu_torch.loop.detector import LoopDatabase
 from modular_slam_tpu_torch.map.arena import MapArena
 from modular_slam_tpu_torch.types import Descriptors, Features, Keypoints
+from modular_slam_tpu_torch.utils.prng import as_key
 
 
 def _t(x, device) -> torch.Tensor:
@@ -59,6 +61,12 @@ def pose_from_numpy(pose: Any, device="cpu") -> Pose:
 
 def pose_to_numpy(pose: Pose) -> Dict[str, np.ndarray]:
     return {"q": _n(pose.q), "t": _n(pose.t)}
+
+
+def key_from_numpy(key: Any) -> np.ndarray:
+    """A JAX PRNG key (`jax.random.PRNGKey`'s uint32[2], its numpy array
+    or an int32 view of it) as the port's key (utils/prng.py), a copy."""
+    return as_key(key).reshape(2).copy()
 
 
 def track_state_from_numpy(state: Any, device="cpu") -> TrackState:

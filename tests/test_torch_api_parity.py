@@ -13,7 +13,7 @@ Beyond the names, a call written for the JAX package must bind the same
 way in the port:
 - signatures: of every public def, every public class's `__init__` and
   `__call__` and every public method, JAX's positional parameters are a
-  prefix of the port's (JAX's `key` is the port's `sampler`), JAX's
+  prefix of the port's, by name, JAX's
   keyword-only ones are keywords of the port's, the port's own are
   keyword-only or come last with a default, and defaults are equal
   (a non-literal JAX default is read in the port module's namespace);
@@ -159,11 +159,6 @@ def test_walk_sees_every_kind():
 
 
 # --- signatures, class members and record fields ----------------------------
-
-# A JAX parameter named on the left is the port's parameter named on the
-# right, where the port has no parameter of JAX's name: the port draws
-# RANSAC hypotheses from a sampler object where JAX splits a PRNG key.
-RENAMED = {"key": "sampler"}
 
 # (JAX module, qualified name, parameter) -> why the defaults differ
 DEFAULT_DIFFERS = {
@@ -334,18 +329,14 @@ def signature_problems(mod: str, qualname: str, fn: ast.FunctionDef,
     ppos = [p for p in params
             if p.kind in (P.POSITIONAL_ONLY, P.POSITIONAL_OR_KEYWORD)]
     by_name = {p.name: p for p in params}
-
-    def renamed(n):
-        return n if n in by_name else RENAMED.get(n, n)
-
-    jnames = [renamed(n) for n, _ in jpos]
+    jnames = [n for n, _ in jpos]
     pnames = [p.name for p in ppos]
     out = []
     if pnames[:len(jnames)] != jnames:
         out.append(f"{qualname}: JAX's positional parameters {jnames} are "
                    f"not a prefix of the port's {pnames}")
     for name, _ in jkw:
-        p = by_name.get(renamed(name))
+        p = by_name.get(name)
         if p is None or p.kind == P.POSITIONAL_ONLY:
             out.append(f"{qualname}: JAX's keyword-only `{name}` is not a "
                        f"keyword of the port's")
@@ -353,7 +344,7 @@ def signature_problems(mod: str, qualname: str, fn: ast.FunctionDef,
         out.append(f"{qualname}: JAX takes *args, the port does not")
     if jvarkw and not any(p.kind == P.VAR_KEYWORD for p in params):
         out.append(f"{qualname}: JAX takes **kwargs, the port does not")
-    known = set(jnames) | {renamed(n) for n, _ in jkw}
+    known = set(jnames) | {n for n, _ in jkw}
     for i, p in enumerate(params):
         if p.name in known or p.kind in (P.KEYWORD_ONLY, P.VAR_POSITIONAL,
                                          P.VAR_KEYWORD):
@@ -363,7 +354,7 @@ def signature_problems(mod: str, qualname: str, fn: ast.FunctionDef,
                        f" is positional at {i} and not after JAX's "
                        f"parameters with a default")
     for name, default in jpos + jkw:
-        p = by_name.get(renamed(name))
+        p = by_name.get(name)
         if p is None or (mod, qualname, name) in DEFAULT_DIFFERS:
             continue
         problem = _default_problem(mod, f"{qualname}({name})", default,
@@ -527,4 +518,3 @@ def test_member_and_field_readers_see_every_kind():
     defs = def_api(os.path.join(JAX_PKG, "engine.py"))
     assert {"SlamSystem.__init__", "make_slam_step",
             "SlamSystem.process"} <= set(defs)
-    assert RENAMED["key"] == "sampler"

@@ -1,10 +1,14 @@
 """The port's checkpoints (`utils/checkpoint.py`) against the JAX
 package's: a checkpoint the JAX engine wrote on the `slam` and `full`
 tiny configurations loads into the port with equal arenas, tracking
-state, loop database and edges (integer and bool fields exact, float
-fields within 1e-6); a port run saved after 6 frames and resumed in a
-fresh system for 4 more is bit-equal on the CPU to 10 frames straight
-through; capacities are checked and the saved vocabulary restored."""
+state, loop database, edges and PRNG key (integer and bool fields exact,
+float fields within 1e-6); a JAX checkpoint resumed in the port and a
+port checkpoint resumed in JAX's `load_checkpoint` each continue equal to
+the other engine, on JAX's stream; a port run saved after 6 frames and
+resumed in a fresh system for 4 more is bit-equal on the CPU to 10
+frames straight through; a file of the port's with `sampler_state` and
+no `key` still loads, keeping the seeded key; capacities are checked and
+the saved vocabulary restored."""
 
 import dataclasses
 
@@ -16,13 +20,16 @@ import torch
 from modular_slam_tpu.config import MapConfig, tiny_test_config
 from modular_slam_tpu.engine import SlamSystem as JaxSlamSystem
 from modular_slam_tpu.utils.checkpoint import \
+    load_checkpoint as jax_load_checkpoint
+from modular_slam_tpu.utils.checkpoint import \
     save_checkpoint as jax_save_checkpoint
 from modular_slam_tpu_torch.loop.vocab import make_vocab
 from modular_slam_tpu_torch.models import make_pipeline
 from modular_slam_tpu_torch.utils import state as port_state
 from modular_slam_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                      save_checkpoint)
-from tests.test_torch_engine import _plane_frames
+from modular_slam_tpu_torch.utils.prng import prng_key
+from tests.test_torch_engine import _assert_same_frame, _plane_frames
 
 FLOAT_TOL = 1e-6
 
@@ -102,10 +109,9 @@ def test_jax_checkpoint_loads_into_the_port(preset, tmp_path, monkeypatch):
                                           jlp._kf_counter,
                                           jlp._last_closure_at)
         assert tlp._n_edges > 0 and bool(tlp.db.valid.any())
-    # the JAX file has no sampler state: the port's sampler stays seeded
-    fresh = make_pipeline(preset, cfg, device="cpu")
-    assert torch.equal(tsys.sampler.generator.get_state(),
-                       fresh.sampler.generator.get_state())
+    # the JAX file's key is the port's now
+    assert tsys._key.dtype == np.uint32
+    np.testing.assert_array_equal(tsys._key, np.asarray(jsys._key))
     # and the port tracks on from the loaded map
     for f in _plane_frames(cfg, n=7)[5:]:
         tsys.process(*f)
@@ -126,7 +132,8 @@ def test_resume_is_bit_equal_to_a_straight_run(preset, tmp_path):
     path = str(tmp_path / "port.npz")
     save_checkpoint(path, first)
     with np.load(path) as data:
-        assert "sampler_state" in data and "key" not in data
+        assert "key" in data and "sampler_state" not in data
+        assert data["key"].dtype == np.uint32
     resumed = make_pipeline(preset, cfg, device="cpu", seed=11)
     load_checkpoint(path, resumed)
     for f in frames[6:]:
@@ -140,8 +147,7 @@ def test_resume_is_bit_equal_to_a_straight_run(preset, tmp_path):
         assert t0 == t1
         assert torch.equal(p0.q, p1.q) and torch.equal(p0.t, p1.t)
     assert len(resumed.trajectory) == len(frames)
-    assert torch.equal(straight.sampler.generator.get_state(),
-                       resumed.sampler.generator.get_state())
+    np.testing.assert_array_equal(straight._key, resumed._key)
     if preset == "full":
         for conv, attr in ((port_state.loop_database_to_numpy, "db"),
                            (port_state.pose_graph_edges_to_numpy, "edges")):
@@ -149,6 +155,61 @@ def test_resume_is_bit_equal_to_a_straight_run(preset, tmp_path):
             got = conv(getattr(resumed._loop, attr))
             for k in want:
                 np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_a_checkpoint_resumes_on_jax_s_stream_in_the_other_engine(
+        writer, tmp_path):
+    """The slam preset from seed 4: one engine runs 5 frames and saves,
+    the other loads the file into a system of another seed, and both
+    process 4 more frames: equal codes, flags, counts and poses within
+    1e-4, and the same key at the end."""
+    cfg = tiny_test_config()
+    frames = _plane_frames(cfg, n=9)
+    jsys = JaxSlamSystem(cfg, seed=4 if writer == "jax" else 9)
+    tsys = make_pipeline("slam", cfg, device="cpu",
+                         seed=4 if writer == "port" else 9)
+    first, second = (jsys, tsys) if writer == "jax" else (tsys, jsys)
+    for f in frames[:5]:
+        first.process(*f)
+    path = str(tmp_path / f"{writer}.npz")
+    if writer == "jax":
+        jax_save_checkpoint(path, jsys)
+        load_checkpoint(path, tsys)
+    else:
+        save_checkpoint(path, tsys)
+        jax_load_checkpoint(path, jsys)
+    np.testing.assert_array_equal(tsys._key, np.asarray(jsys._key))
+    for k, f in enumerate(frames[5:], start=5):
+        _assert_same_frame(k, jsys, jsys.process(*f), tsys, tsys.process(*f))
+    np.testing.assert_array_equal(tsys._key, np.asarray(jsys._key))
+    assert tsys.n_keyframes == jsys.n_keyframes > 2
+
+
+def test_a_file_with_sampler_state_and_no_key_still_loads(tmp_path):
+    """The port's files before it carried JAX's key held `sampler_state`
+    (a CPU generator's state) and no `key`: such a file loads, and the
+    system keeps the key of its own seed."""
+    cfg = tiny_test_config()
+    saved = make_pipeline("slam", cfg, device="cpu", seed=3)
+    for f in _plane_frames(cfg, n=4):
+        saved.process(*f)
+    path = str(tmp_path / "new.npz")
+    save_checkpoint(path, saved)
+    with np.load(path) as data:
+        old = {k: data[k] for k in data.files if k != "key"}
+    old["sampler_state"] = torch.Generator().manual_seed(3).get_state(
+    ).numpy()
+    old_path = str(tmp_path / "old.npz")
+    np.savez_compressed(old_path, **old)
+    loaded = make_pipeline("slam", cfg, device="cpu", seed=8)
+    load_checkpoint(old_path, loaded)
+    np.testing.assert_array_equal(loaded._key, prng_key(8))
+    for k, v in port_state.arena_to_numpy(saved.arena).items():
+        np.testing.assert_array_equal(
+            port_state.arena_to_numpy(loaded.arena)[k], v, err_msg=k)
+    loaded.process(*_plane_frames(cfg, n=5)[4])
+    assert bool(loaded.results[-1].tracking_ok)
 
 
 def test_capacity_mismatch_raises(tmp_path):

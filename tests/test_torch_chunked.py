@@ -407,7 +407,7 @@ def test_scan_reads_nothing_back():
     from modular_slam_tpu_torch.engine import make_slam_scan
     from modular_slam_tpu_torch.frontend.tracker import initial_state
     from modular_slam_tpu_torch.map.arena import empty_arena
-    from modular_slam_tpu_torch.ops.pnp import MultinomialSampler
+    from modular_slam_tpu_torch.utils.prng import prng_key, split
 
     reads = ("aten._local_scalar_dense", "aten.nonzero",
              "aten.masked_select", "aten.item")
@@ -439,7 +439,8 @@ def test_scan_reads_nothing_back():
     mode = HostReads()
     with mode:
         arena, state, res = scan(empty_arena(cfg.map), initial_state(),
-                                 grays, depths, times, MultinomialSampler(0),
+                                 grays, depths, times,
+                                 split(prng_key(0), len(frames)),
                                  bootstrap=True)
     assert mode.seen == []
     assert bool(res.tracking_ok.all())

@@ -250,7 +250,7 @@ def test_unported_features_raise():
     full.process(*_plane_frames(cfg, n=1)[0])
     lp = full._loop
     full.arena, full.state, closed = lp.on_new_keyframe(
-        full.arena, full.state, 0, full.last_features, full.sampler,
+        full.arena, full.state, 0, full.last_features, full._next_key(),
         defer_closure=True)
     assert not closed and lp.has_pending_closure
     assert lp._pending_verify[0][:2] == (lp._kf_counter, 0)
@@ -536,16 +536,14 @@ def test_entry_points_default_to_the_card(entry):
 def test_slam_system_takes_jax_positional_order():
     """`SlamSystem(cfg, 3, False)` means seed 3 and no backend, as in the
     JAX engine; `device` and `sampler` are keyword-only."""
-    from modular_slam_tpu_torch.ops.pnp import MultinomialSampler
-
     cfg = tiny_test_config()
     jsys = JaxSlamSystem(cfg, 3, False)
     tsys = SlamSystem(cfg, 3, False, device="cpu")
     assert jsys.enable_backend is tsys.enable_backend is False
     np.testing.assert_array_equal(np.asarray(jsys._key),
                                   np.asarray(jax.random.PRNGKey(3)))
-    assert torch.equal(tsys.sampler.uniforms(8),
-                       MultinomialSampler(3).uniforms(8))
+    np.testing.assert_array_equal(tsys._key, np.asarray(jsys._key))
+    assert tsys.sampler is None
     jax_args = (3, False, 2, False, False, None, "async", True)
     full = SlamSystem(cfg, *jax_args, device="cpu")
     assert (full.ba_every, full.ba_mode, full.defer_chunk_sync) == (

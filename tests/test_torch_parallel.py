@@ -5,9 +5,10 @@ The batched step and scan of the port run B sequences through one
 `torch.func.vmap` of the single-sequence step, with vmap's per-example
 fallback turned into an error, so every op of the step batches.  They
 are held against JAX's `make_batch_slam_scan` (one module-scoped run)
-with the JAX draws replayed per sequence, against the port's own
-single-sequence scan with seeded samplers, and on the op count: a
-batch of 4 dispatches no more than 1.2 times the ops of a batch of 1.
+on JAX's keys, against the port's own single-sequence scan on the same
+keys, and on the op count: a batch of 4 dispatches no more than 1.2
+times the ops of a batch of 1.  `MultiSequenceRunner` from a seed is
+held against JAX's runner from that seed.
 """
 
 import numpy as np
@@ -21,6 +22,8 @@ from modular_slam_tpu.config import tiny_test_config as jax_tiny_config
 from modular_slam_tpu.parallel import dp as jdp
 from modular_slam_tpu.parallel import mesh as jmesh
 from modular_slam_tpu.parallel.multiseq import \
+    MultiSequenceRunner as JaxMultiSequenceRunner
+from modular_slam_tpu.parallel.multiseq import \
     scaling_efficiency as jax_scaling_efficiency
 from modular_slam_tpu_torch.config import (CameraConfig, DetectorConfig,
                                            MapConfig, PnpConfig, SlamConfig,
@@ -32,13 +35,13 @@ from modular_slam_tpu_torch.io.tum import rgb_to_luma
 from modular_slam_tpu_torch.map.arena import empty_arena
 from modular_slam_tpu_torch.ops import fast as tfast
 from modular_slam_tpu_torch.ops import match as tmatch
-from modular_slam_tpu_torch.ops.pnp import MultinomialSampler
 from modular_slam_tpu_torch.parallel import (make_batch_slam_scan,
                                              make_batch_slam_step,
                                              make_kf_mesh, make_mesh)
 from modular_slam_tpu_torch.parallel.dp import make_batch_init, tree_map
 from modular_slam_tpu_torch.parallel.multiseq import (MultiSequenceRunner,
                                                       scaling_efficiency)
+from modular_slam_tpu_torch.utils.prng import prng_key, split
 
 B, C = 4, 6
 POSE_TOL = 1e-4          # against JAX (the engine tests' tolerance)
@@ -96,32 +99,6 @@ def jax_run(scenes):
         jnp.asarray(times), keys)
     return keys, jax.tree.map(np.asarray, arenas), jax.tree.map(np.asarray,
                                                                 res)
-
-
-class KeyReplay:
-    """One sequence's sampler drawing with given JAX keys, in order (the
-    probabilities of ops/pnp.py)."""
-
-    def __init__(self, keys):
-        self.keys = list(keys)
-
-    def __call__(self, valid, n_hyp):
-        v = jnp.asarray(valid.cpu().numpy())
-        p = v.astype(jnp.float32) + 1e-9
-        idx = jax.random.choice(self.keys.pop(0), v.shape[0], (n_hyp, 3),
-                                replace=True, p=p / jnp.sum(p))
-        return torch.from_numpy(np.array(idx)).long()
-
-    @staticmethod
-    def draw_batch(samplers, valid, n_hyp):
-        """The batched step's draw: replays[b] on row b of valid [B, N]."""
-        return torch.stack([s(v, n_hyp) for s, v in zip(samplers, valid)])
-
-
-def _replays(keys):
-    """Per sequence, the keys of its tracked frames (the bootstrap frame
-    draws nothing)."""
-    return [KeyReplay([keys[i, b] for i in range(1, C)]) for b in range(B)]
 
 
 def _torch(scenes):
@@ -205,10 +182,8 @@ def test_batched_scan_matches_jax(scenes, jax_run):
     cfg = scenes[0]
     mesh = make_mesh(seq=1, devices=CPUS)
     arenas, states = make_batch_init(cfg, mesh, B)
-    samplers = _replays(keys)
     arenas, states, res = make_batch_slam_scan(cfg, mesh)(
-        arenas, states, *_torch(scenes), samplers, bootstrap=True)
-    assert not any(s.keys for s in samplers)
+        arenas, states, *_torch(scenes), np.asarray(keys), bootstrap=True)
     assert res.tracking_ok.all()
     _assert_like_jax(res, arenas, jres, jarenas)
     # the sequences follow their own ground truths (the bound of
@@ -226,12 +201,12 @@ def test_batched_step_on_a_grid_of_two_rows_matches_jax(scenes, jax_run):
     arenas, states = make_batch_init(cfg, mesh, B)
     assert [a.n_kf.shape[0] for a in arenas] == [2, 2]
     step = make_batch_slam_step(cfg, mesh)
-    samplers = _replays(keys)
     grays, depths, times = _torch(scenes)
     results = []
     for i in range(C):
         arenas, states, r = step(arenas, states, grays[i], depths[i],
-                                 times[i], samplers, bootstrap=i == 0)
+                                 times[i], np.asarray(keys[i]),
+                                 bootstrap=i == 0)
         results.append(r)
     res = tree_map(lambda *xs: torch.stack(xs), *results)
     _assert_like_jax(res, arenas, jres, jarenas)
@@ -239,19 +214,19 @@ def test_batched_step_on_a_grid_of_two_rows_matches_jax(scenes, jax_run):
 
 def test_batched_scan_equals_single_sequence_scans(scenes):
     """Sequence b of the batch tracks as the port's single-sequence scan
-    with MultinomialSampler(3 + b): equal flags, counts and slots."""
+    on sequence b's keys: equal flags, counts and slots."""
     cfg = scenes[0]
     grays, depths, times = _torch(scenes)
+    keys = split(prng_key(3), C * B).reshape(C, B, 2)
     mesh = make_mesh(seq=1, devices=CPUS)
     arenas, states = make_batch_init(cfg, mesh, B)
     arenas, states, res = make_batch_slam_scan(cfg, mesh)(
-        arenas, states, grays, depths, times,
-        [MultinomialSampler(3 + b) for b in range(B)], bootstrap=True)
+        arenas, states, grays, depths, times, keys, bootstrap=True)
     single = make_slam_scan(cfg, device="cpu")
     for b in range(B):
         a1, _, r1 = single(empty_arena(cfg.map), initial_state(),
                            grays[:, b], depths[:, b], times[:, b],
-                           MultinomialSampler(3 + b), bootstrap=True)
+                           keys[:, b], bootstrap=True)
         for f in FIELDS:
             assert torch.equal(getattr(r1, f), getattr(res, f)[:, b]), (b, f)
         torch.testing.assert_close(r1.pose.t, res.pose.t[:, b], rtol=0,
@@ -281,12 +256,12 @@ def test_batch_of_four_dispatches_as_few_ops_as_a_batch_of_one(scenes):
         mesh = make_mesh(seq=1, devices=CPUS)
         arenas, states = make_batch_init(cfg, mesh, n)
         step = make_batch_slam_step(cfg, mesh)
-        samplers = [MultinomialSampler(b) for b in range(n)]
+        keys = split(prng_key(n), 2 * n).reshape(2, n, 2)
         arenas, states, _ = step(arenas, states, grays[0, :n], depths[0, :n],
-                                 times[0, :n], samplers, bootstrap=True)
+                                 times[0, :n], keys[0], bootstrap=True)
         with _OpCount() as ops:
             arenas, states, r = step(arenas, states, grays[1, :n],
-                                     depths[1, :n], times[1, :n], samplers)
+                                     depths[1, :n], times[1, :n], keys[1])
         assert r.tracking_ok.all()
         counts[n] = ops.n
     assert counts[4] <= 1.2 * counts[1], counts
@@ -435,3 +410,54 @@ def test_k2_vmap_rule_with_a_train_operand_per_sequence(plain_ops):
         assert torch.equal(ok[b], want.valid)
         assert torch.equal(lm[b], want.lm_slot)
         assert torch.equal(dist[b], want.distance)
+
+
+def test_multiseq_runner_from_a_seed_matches_jax():
+    """`MultiSequenceRunner(seed=5)` at B = 3 with no sampler takes JAX's
+    keys: five frames in chunks of 2 (two chunks, then a frame on its
+    own, as both runners' `run` does) give the JAX runner's poses within
+    1e-4 and its map counters, and both runners end on the same key."""
+    n, batch, chunk, seed = 5, 3, 2, 5
+    cfg = tiny_test_config()
+    seqs = []
+    for b in range(batch):
+        gen = PlaneSceneGenerator(cfg.camera, seed=40 + b, texture_ppm=100.0,
+                                  texture_size=2048)
+        sign = 1.0 if b % 2 == 0 else -1.0
+        seqs.append(list(gen.sequence(gen.trajectory(
+            n, step_t=(sign * (0.004 + 0.002 * b), 0.002, 0.0),
+            step_rot=(0.0, 0.001 * sign, 0.0)))))
+    runner = MultiSequenceRunner(cfg, batch=batch, chunk=chunk, seed=seed,
+                                 device="cpu")
+    runner.run(seqs)
+
+    # JAX's runner on the port's grays (the JAX runner's own luma is a
+    # numpy product, which may round otherwise)
+    grays = np.stack([np.stack([rgb_to_luma(torch.from_numpy(s[i][0]))
+                                .numpy() for s in seqs]) for i in range(n)])
+    depths = np.stack([np.stack([s[i][1] for s in seqs]) for i in range(n)])
+    times = np.array([[s[i][2] for s in seqs] for i in range(n)],
+                     np.float32)
+    jrunner = JaxMultiSequenceRunner(
+        jax_tiny_config(), batch=batch, seed=seed, chunk=chunk,
+        mesh=jmesh.make_mesh(seq=1, obs=1, devices=jax.devices()[:1]))
+    for lo in (0, 2):
+        jrunner.process_chunk(grays[lo:lo + chunk], depths[lo:lo + chunk],
+                              times[lo:lo + chunk])
+    jrunner.process_batch(grays[4], depths[4], times[4])
+
+    np.testing.assert_array_equal(runner._key, np.asarray(jrunner._key))
+    assert all(all(ok) for ok in runner.tracking_ok)
+    for b in range(batch):
+        assert len(runner.trajectories[b]) == len(jrunner.trajectories[b]) \
+            == n
+        for (t0, p), (t1, jp) in zip(runner.trajectories[b],
+                                     jrunner.trajectories[b]):
+            assert t0 == t1
+            np.testing.assert_allclose(p.t.numpy(), np.asarray(jp.t),
+                                       rtol=0, atol=POSE_TOL)
+            np.testing.assert_allclose(p.q.numpy(), np.asarray(jp.q),
+                                       rtol=0, atol=POSE_TOL)
+    for k, v in _cat(runner.arenas).items():
+        np.testing.assert_array_equal(v, np.asarray(getattr(jrunner.arenas,
+                                                            k)), err_msg=k)

@@ -43,7 +43,7 @@ def build_arena(cfg, n_frames=48, *, device="cuda", texture_ppm=400.0,
     from modular_slam_tpu_torch.eval.synthetic import PlaneSceneGenerator
     from modular_slam_tpu_torch.frontend.tracker import initial_state
     from modular_slam_tpu_torch.map.arena import empty_arena
-    from modular_slam_tpu_torch.ops.pnp import MultinomialSampler
+    from modular_slam_tpu_torch.utils.prng import prng_key, split
 
     dev = _resolve_device(device)
     gen = PlaneSceneGenerator(cfg.camera, seed=42, texture_ppm=texture_ppm)
@@ -54,8 +54,8 @@ def build_arena(cfg, n_frames=48, *, device="cuda", texture_ppm=400.0,
     grays, depths, times = bench._stage_frames(frames, device=dev)
     scan = make_slam_scan(cfg, device=dev)
     arena, state, res = scan(empty_arena(cfg.map, dev), initial_state(dev),
-                             grays, depths, times, MultinomialSampler(0),
-                             bootstrap=True)
+                             grays, depths, times,
+                             split(prng_key(0), len(frames)), bootstrap=True)
     kf_slots = res.kf_slot.cpu().numpy()
     new_kf = res.new_keyframe.cpu().numpy()
     last_kf = int(kf_slots[np.nonzero(new_kf)[0][-1]])

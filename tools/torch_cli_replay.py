@@ -13,9 +13,10 @@ recorded and replayed to the port in the port's draw order, and every
 global-BA tier is installed up front with no background compile
 (`tests/test_torch_chunked.py::_pair`).  Prints one JSON object: each
 side's frame and keyframe ATE, closures, keyframes, and the largest
-frame-by-frame pose difference.  The runners differ from this in their
-draws and, on the JAX side, in deferring a global BA whose tier is still
-compiling.  Imports both packages; runs on the CPU only.
+frame-by-frame pose difference.  The JAX runner differs from this in
+deferring a global BA whose tier is still compiling; the port's runner
+draws from seed 0 what is replayed here.  Imports both packages; runs on
+the CPU only.
 
 `--record PATH` also writes what `chip_smoke.py`'s `cli_replay` phase
 replays on the card (`modular_slam_tpu_torch/data/cli_jax_draws.npz`):
