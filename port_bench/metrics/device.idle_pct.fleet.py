@@ -1,0 +1,7 @@
+"""Idle share of the card in the traced window of a fleet cell, in %."""
+
+from port_bench.trace import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx["trace"])
