@@ -65,6 +65,7 @@ from modular_slam_tpu_torch.geometry.se3 import (Pose, pose_compose,
 from modular_slam_tpu_torch.map.arena import (MapArena, khop_keyframes,
                                               visible_landmarks)
 from modular_slam_tpu_torch.utils.indices import masked_indices
+from modular_slam_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 F32 = torch.float32
@@ -147,8 +148,9 @@ def _free_poses(pose_free: Tensor, q_cw: Tensor, t_cw: Tensor,
 
 
 def _segment_sum(x: Tensor, idx: Tensor, n: int) -> Tensor:
-    out = torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device)
-    return out.index_add_(0, idx, x)
+    with span("ba.segment_sum"):
+        out = torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        return out.index_add_(0, idx, x)
 
 
 def residual_model(cam: Camera, cfg, residual_type: str):
@@ -287,7 +289,9 @@ def ba_core(
             improved = state[4] < prev_cost * (1.0 - rtol)
             stall = _stall_update(stall, accept, improved)
             n_it += 1
-            if int(stall) >= 2:       # the loop's one host sync
+            with span("ba.stop_read"):
+                stop = int(stall) >= 2    # the loop's one host sync
+            if stop:
                 break
     q_cw, t_cw, lm_out, _, cost_end = state
     q_wc, t_wc = _free_poses(pose_free, q_cw, t_cw, kf_q_wc, kf_t_wc)
@@ -738,7 +742,9 @@ def make_global_ba_compact(cfg: SlamConfig, tier: Tuple[int, int, int],
     (`gba_max_iterations`, `gba_cg_iters`) with the early stop at
     `gba_early_stop_rtol`.
 
-    Returns fn(arena) -> (arena, BAStats), updating the arena in place."""
+    Returns fn(arena) -> (arena, BAStats), updating the arena in place;
+    a call runs in the span `ba.global` (utils/profiling.py), its stop
+    reads in `ba.stop_read` and its segment sums in `ba.segment_sum`."""
     cam = camera_from_config(cfg.camera, _resolve_device(device))
     bcfg = dataclasses.replace(cfg.backend,
                                max_iterations=cfg.backend.gba_max_iterations,
@@ -746,6 +752,10 @@ def make_global_ba_compact(cfg: SlamConfig, tier: Tuple[int, int, int],
     Kt, Lt, Ot = tier
 
     def global_ba(arena: MapArena):
+        with span("ba.global"):
+            return _global_ba(arena)
+
+    def _global_ba(arena: MapArena):
         K, L, O = (arena.max_keyframes, arena.max_landmarks,
                    arena.max_observations)
         kf_act, lm_act = arena.kf_valid, arena.lm_valid

@@ -41,6 +41,7 @@ from modular_slam_tpu_torch.utils.device import upload
 from modular_slam_tpu_torch.utils.params import ParameterRegistry
 from modular_slam_tpu_torch.utils.prng import (device_uniforms, prng_key,
                                                split)
+from modular_slam_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -82,14 +83,17 @@ def make_slam_step(cfg: SlamConfig, components=None, *,
     `bootstrap` says whether the arena is empty (read from it when None);
     given, the step reads nothing back from the device.  `components`
     (models/components.Components) injects the detector, matcher and pnp;
-    None uses the built-ins."""
+    None uses the built-ins.  The detector runs in the span `step.detect`
+    (utils/profiling.py), the tracker's stages in theirs
+    (frontend/tracker.py)."""
     cam = camera_from_config(cfg.camera, _resolve_device(device))
     detect_fn, match_fn, pnp_fn = _resolve(cfg, components)
 
     def slam_step(arena: MapArena, state: TrackState, gray: Tensor,
                   depth: Tensor, time: Tensor, key,
                   bootstrap: Optional[bool] = None):
-        feats = detect_fn(gray, depth)
+        with span("step.detect"):
+            feats = detect_fn(gray, depth)
         arena, state, result = track_frame(
             arena, state, feats, cam, cfg, time, key,
             match_fn=match_fn, pnp_fn=pnp_fn, bootstrap=bootstrap)
@@ -177,7 +181,8 @@ def make_slam_scan(cfg: SlamConfig, components=None, with_features=False,
         draws = frame_draws(keys, grays.shape[0])
         for i in range(grays.shape[0]):
             k_track, k_reloc = draws[i]
-            feats = detect_fn(grays[i], depths[i])
+            with span("step.detect"):
+                feats = detect_fn(grays[i], depths[i])
             arena, state, result = track_frame(
                 arena, state, feats, cam, cfg, times[i], k_track,
                 bootstrap=bootstrap and i == 0, match_fn=match_fn,

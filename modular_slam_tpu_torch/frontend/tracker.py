@@ -17,6 +17,8 @@ better-reference vote, and `torch.where` picks between them; scalar
 indices are 1-d `index_select`s.  Only the bootstrap choice is a host
 decision: `track_frame(..., bootstrap=...)` takes it from the caller (the
 engine keeps it as a flag), and reads `arena.n_kf` when it is not given.
+A tracked frame's stages run in the spans `track.match`, `track.pnp` and
+`track.keyframe` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from modular_slam_tpu_torch.map.arena import (MapArena, add_keyframe,
 from modular_slam_tpu_torch.ops.match import dedupe_matches, match_descriptors
 from modular_slam_tpu_torch.ops.pnp import ransac_pnp
 from modular_slam_tpu_torch.types import Features, TrackResult
+from modular_slam_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -114,70 +117,76 @@ def _track(arena: MapArena, state: TrackState, feats: Features, cam: Camera,
         pnp_fn = lambda pw, uv, pc, v, init, k: ransac_pnp(  # noqa: E731
             cam, pw, uv, pc, v, init, k, cfg.pnp)
 
-    # --- candidate landmarks: 2-hop covisibility of the reference KF ------
-    kf_mask = khop_keyframes(arena, state.ref_kf, tcfg.covis_depth_tracking)
-    lm_mask = visible_landmarks(arena, kf_mask)
+    with span("track.match"):
+        # --- candidate landmarks: 2-hop covisibility of the reference KF -----
+        kf_mask = khop_keyframes(arena, state.ref_kf,
+                                 tcfg.covis_depth_tracking)
+        lm_mask = visible_landmarks(arena, kf_mask)
 
-    # --- 2-NN ratio matching against landmark descriptors (kernel K2) ----
-    matches = match_fn(desc, kps.valid, arena.lm_desc, lm_mask)
-    matches = dedupe_matches(matches, arena.max_landmarks)
+        # --- 2-NN ratio matching against landmark descriptors (kernel K2) ----
+        matches = match_fn(desc, kps.valid, arena.lm_desc, lm_mask)
+        matches = dedupe_matches(matches, arena.max_landmarks)
 
-    has_depth = kps.depth > 0.0
-    m_ok = matches.valid & has_depth
-    n_matches = _count(m_ok)
+        has_depth = kps.depth > 0.0
+        m_ok = matches.valid & has_depth
+        n_matches = _count(m_ok)
 
-    # --- PnP ---------------------------------------------------------------
-    pts_world = arena.lm_pos[matches.lm_slot.long()]
-    pts_cam = backproject(cam, kps.uv, kps.depth)
-    pnp = pnp_fn(pts_world, kps.uv, pts_cam, m_ok, state.pose, key)
+    with span("track.pnp"):
+        # --- PnP -------------------------------------------------------------
+        pts_world = arena.lm_pos[matches.lm_slot.long()]
+        pts_cam = backproject(cam, kps.uv, kps.depth)
+        pnp = pnp_fn(pts_world, kps.uv, pts_cam, m_ok, state.pose, key)
 
-    enough = n_matches >= tcfg.min_matched_points
-    ok = enough & pnp.ok
-    pose = Pose(q=torch.where(ok, pnp.pose.q, state.pose.q),
-                t=torch.where(ok, pnp.pose.t, state.pose.t))
-    n_inliers = torch.where(ok, pnp.n_inliers, torch.zeros_like(pnp.n_inliers))
+        enough = n_matches >= tcfg.min_matched_points
+        ok = enough & pnp.ok
+        pose = Pose(q=torch.where(ok, pnp.pose.q, state.pose.q),
+                    t=torch.where(ok, pnp.pose.t, state.pose.t))
+        n_inliers = torch.where(ok, pnp.n_inliers,
+                                torch.zeros_like(pnp.n_inliers))
 
-    # --- keyframe policy: inlier floor | weak vs reference | overdue -------
-    # (a reference slot of K, a keyframe the full pool dropped, reads row
-    # K - 1 as the JAX gather clamps it)
-    K, L = arena.max_keyframes, arena.max_landmarks
-    ref_row = torch.clamp(state.ref_kf, max=K - 1)
-    n_ref_obs = torch.sum(_pick(arena.inc, ref_row).to(torch.float32))
-    weak_vs_ref = (n_inliers.to(torch.float32)
-                   < tcfg.new_keyframe_inlier_ratio * n_ref_obs)
-    overdue = (state.since_kf + 1) >= tcfg.max_kf_interval
-    need_kf = ok & ((n_inliers < tcfg.new_keyframe_min_inliers)
-                    | weak_vs_ref | overdue)
+    with span("track.keyframe"):
+        # --- keyframe policy: inlier floor | weak vs reference | overdue -----
+        # (a reference slot of K, a keyframe the full pool dropped, reads row
+        # K - 1 as the JAX gather clamps it)
+        K, L = arena.max_keyframes, arena.max_landmarks
+        ref_row = torch.clamp(state.ref_kf, max=K - 1)
+        n_ref_obs = torch.sum(_pick(arena.inc, ref_row).to(torch.float32))
+        weak_vs_ref = (n_inliers.to(torch.float32)
+                       < tcfg.new_keyframe_inlier_ratio * n_ref_obs)
+        overdue = (state.since_kf + 1) >= tcfg.max_kf_interval
+        need_kf = ok & ((n_inliers < tcfg.new_keyframe_min_inliers)
+                        | weak_vs_ref | overdue)
 
-    # --- better-reference search: visibility voting over 5 hops, on the
-    # arena before the keyframe branch's inserts (used when no keyframe)
-    hop5 = khop_keyframes(arena, state.ref_kf, tcfg.covis_depth_better_kf)
-    # scatter with a sentinel row L, dropped by the slice
-    slots = torch.where(pnp.inliers, matches.lm_slot.long(),
-                        torch.full_like(matches.lm_slot.long(), L))
-    inlier_lm = torch.zeros(L + 1, dtype=torch.float32,
-                            device=slots.device).index_fill(0, slots, 1.0)
-    votes = (arena.inc.to(torch.float32) @ inlier_lm[:L]).to(torch.int32)
-    votes = torch.where(hop5 & arena.kf_valid, votes,
-                        torch.full_like(votes, -1))
-    best = torch.argmax(votes).to(torch.int32)
-    ref = torch.where(_pick(votes, best) > 0, best, state.ref_kf)
+        # --- better-reference search: visibility voting over 5 hops, on the
+        # arena before the keyframe branch's inserts (used when no keyframe)
+        hop5 = khop_keyframes(arena, state.ref_kf,
+                              tcfg.covis_depth_better_kf)
+        # scatter with a sentinel row L, dropped by the slice
+        slots = torch.where(pnp.inliers, matches.lm_slot.long(),
+                            torch.full_like(matches.lm_slot.long(), L))
+        inlier_lm = torch.zeros(L + 1, dtype=torch.float32,
+                                device=slots.device).index_fill(0, slots, 1.0)
+        votes = (arena.inc.to(torch.float32) @ inlier_lm[:L]).to(torch.int32)
+        votes = torch.where(hop5 & arena.kf_valid, votes,
+                            torch.full_like(votes, -1))
+        best = torch.argmax(votes).to(torch.int32)
+        ref = torch.where(_pick(votes, best) > 0, best, state.ref_kf)
 
-    # --- the keyframe branch, masked by need_kf ----------------------------
-    arena, kf_slot = add_keyframe(arena, pose, time, enable=need_kf)
-    # observations of inlier-matched landmarks from the new keyframe
-    arena = add_observations(arena, kf_slot, matches.lm_slot, kps.uv,
-                             kps.depth, desc, pnp.inliers, enable=need_kf)
-    # new landmarks from unmatched keypoints with near depth
-    unmatched = (kps.valid & ~matches.valid & (kps.depth > 0.0)
-                 & (kps.depth <= tcfg.new_landmark_max_depth))
-    pts_w_new = pose_apply(pose, pts_cam)
-    arena, lm_slots = add_landmarks(arena, pts_w_new, desc, unmatched,
-                                    enable=need_kf)
-    arena = add_observations(arena, kf_slot, lm_slots, kps.uv, kps.depth,
-                             desc, unmatched, enable=need_kf)
-    kf_or_ref = torch.where(need_kf, kf_slot, ref)
-    ref_kf = torch.where(ok, kf_or_ref, state.ref_kf)
+        # --- the keyframe branch, masked by need_kf --------------------------
+        arena, kf_slot = add_keyframe(arena, pose, time, enable=need_kf)
+        # observations of inlier-matched landmarks from the new keyframe
+        arena = add_observations(arena, kf_slot, matches.lm_slot, kps.uv,
+                                 kps.depth, desc, pnp.inliers, enable=need_kf)
+        # new landmarks from unmatched keypoints with near depth
+        unmatched = (kps.valid & ~matches.valid & (kps.depth > 0.0)
+                     & (kps.depth <= tcfg.new_landmark_max_depth))
+        pts_w_new = pose_apply(pose, pts_cam)
+        arena, lm_slots = add_landmarks(arena, pts_w_new, desc, unmatched,
+                                        enable=need_kf)
+        arena = add_observations(arena, kf_slot, lm_slots, kps.uv, kps.depth,
+                                 desc, unmatched, enable=need_kf)
+        kf_or_ref = torch.where(need_kf, kf_slot, ref)
+        ref_kf = torch.where(ok, kf_or_ref, state.ref_kf)
 
     result = TrackResult(
         pose=pose, n_matches=n_matches, n_inliers=n_inliers,

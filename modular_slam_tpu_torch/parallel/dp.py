@@ -28,6 +28,10 @@ and go to the device in one upload per call (utils/prng.py), and the
 vmapped step maps them to rows against the batch's masks in one batched
 mapping.
 
+The span `step` (utils/profiling.py) holds the host's dispatch of one
+batched frame over all groups; the stage spans inside it open once per
+batched frame, since the vmapped step runs its Python once for the batch.
+
 The bootstrap is a host flag, as in the port's engine: the first batched
 frame bootstraps every sequence.  Like the JAX step, the arenas are
 updated in place (map/arena.py).
@@ -47,6 +51,7 @@ from modular_slam_tpu_torch.map.arena import MapArena, empty_arena
 from modular_slam_tpu_torch.parallel.mesh import Mesh
 from modular_slam_tpu_torch.types import TrackResult
 from modular_slam_tpu_torch.utils.prng import Uniforms, device_uniforms
+from modular_slam_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -138,20 +143,22 @@ def make_batch_slam_step(cfg: SlamConfig, mesh: Mesh,
 
     def step(arenas, states, grays, depths, times, keys,
              bootstrap: bool = False):
-        u = _draws(keys, (times.shape[0],), cfg.pnp.n_hypotheses,
-                   times.device).u
-        out_a, out_s, results = [], [], []
-        for r, (dev, sl) in enumerate(row_groups(mesh, times.shape[0],
-                                                 axis)):
-            a, s, res = group(dev, arenas[r], states[r], grays[sl].to(dev),
-                              depths[sl].to(dev), times[sl].to(dev),
-                              u[sl].to(dev), bootstrap)
-            out_a.append(a)
-            out_s.append(s)
-            results.append(res)
-        first = results[0].tracking_ok.device
-        return out_a, out_s, tree_map(
-            lambda *xs: torch.cat([x.to(first) for x in xs]), *results)
+        with span("step"):
+            u = _draws(keys, (times.shape[0],), cfg.pnp.n_hypotheses,
+                       times.device).u
+            out_a, out_s, results = [], [], []
+            for r, (dev, sl) in enumerate(row_groups(mesh, times.shape[0],
+                                                     axis)):
+                a, s, res = group(dev, arenas[r], states[r],
+                                  grays[sl].to(dev), depths[sl].to(dev),
+                                  times[sl].to(dev), u[sl].to(dev),
+                                  bootstrap)
+                out_a.append(a)
+                out_s.append(s)
+                results.append(res)
+            first = results[0].tracking_ok.device
+            return out_a, out_s, tree_map(
+                lambda *xs: torch.cat([x.to(first) for x in xs]), *results)
 
     return step
 

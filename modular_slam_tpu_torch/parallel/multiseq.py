@@ -32,6 +32,7 @@ from modular_slam_tpu_torch.parallel.dp import (make_batch_init,
 from modular_slam_tpu_torch.parallel.mesh import make_mesh
 from modular_slam_tpu_torch.utils.device import upload
 from modular_slam_tpu_torch.utils.prng import prng_key, split
+from modular_slam_tpu_torch.utils.profiling import span
 
 
 class MultiSequenceRunner:
@@ -74,32 +75,40 @@ class MultiSequenceRunner:
 
     def process_chunk(self, grays, depths, times) -> None:
         """C frames of every sequence, queued without a host read:
-        grays/depths [C, B, H, W] float32; times [C, B]."""
-        times = np.asarray(times, np.float32)
-        C = times.shape[0]
-        self._key, sub = split(self._key)
-        keys = split(sub, C * self.batch).reshape(C, self.batch, 2)
-        self.arenas, self.states, results = self._scan(
-            self.arenas, self.states, self._upload(grays),
-            self._upload(depths), self._upload(times), keys,
-            self._bootstrap())
-        self._collect(results, times, times.shape[0])
+        grays/depths [C, B, H, W] float32; times [C, B].  Spans (utils/
+        profiling.py): `multiseq.chunk` around the call, `multiseq.upload`
+        around the frames' uploads."""
+        with span("multiseq.chunk"):
+            times = np.asarray(times, np.float32)
+            C = times.shape[0]
+            self._key, sub = split(self._key)
+            keys = split(sub, C * self.batch).reshape(C, self.batch, 2)
+            with span("multiseq.upload"):
+                frames = (self._upload(grays), self._upload(depths),
+                          self._upload(times))
+            self.arenas, self.states, results = self._scan(
+                self.arenas, self.states, *frames, keys, self._bootstrap())
+            self._collect(results, times, times.shape[0])
 
     def _collect(self, results, ts: np.ndarray, C: int) -> None:
         """Append [C, B] poses and tracking flags to the per-sequence
-        lists: one host transfer per call."""
+        lists: one host transfer per call.  The span `multiseq.collect`
+        opens after the transfer, so that it holds the host's unpacking
+        and not the wait for the card."""
         packed = torch.cat([
             results.pose.q.reshape(C, self.batch, 4),
             results.pose.t.reshape(C, self.batch, 3),
             results.tracking_ok.reshape(C, self.batch, 1).to(torch.float32),
         ], dim=-1).cpu().numpy()
-        for i in range(C):
-            for b in range(self.batch):
-                row = packed[i, b]
-                self.trajectories[b].append(
-                    (float(ts[i, b]), Pose(q=torch.from_numpy(row[:4].copy()),
-                                           t=torch.from_numpy(row[4:7].copy()))))
-                self.tracking_ok[b].append(bool(row[7]))
+        with span("multiseq.collect"):
+            for i in range(C):
+                for b in range(self.batch):
+                    row = packed[i, b]
+                    self.trajectories[b].append(
+                        (float(ts[i, b]),
+                         Pose(q=torch.from_numpy(row[:4].copy()),
+                              t=torch.from_numpy(row[4:7].copy()))))
+                    self.tracking_ok[b].append(bool(row[7]))
 
     def run(self, sequences: Sequence, max_frames: int | None = None) -> dict:
         """sequences: B iterables of (rgb, depth, ts).  Frames are staged

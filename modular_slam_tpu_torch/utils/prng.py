@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from modular_slam_tpu_torch.utils.device import upload
+from modular_slam_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -136,8 +137,9 @@ class Uniforms:
 
 def device_uniforms(key, n_hyp: int, device) -> Uniforms:
     """The draws of keys [..., 2], [..., n_hyp, 3], made on the host and
-    put on `device` in one upload."""
-    return Uniforms(upload(uniform(key, (n_hyp, 3)), device))
+    put on `device` in one upload (the span `prng.uniforms`)."""
+    with span("prng.uniforms"):
+        return Uniforms(upload(uniform(key, (n_hyp, 3)), device))
 
 
 def _left_to_right(x: Tensor) -> Tensor:
