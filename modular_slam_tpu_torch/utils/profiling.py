@@ -3,9 +3,10 @@ device traces (counterpart of modular_slam_tpu/utils/profiling.py).
 
 `FrameTimer` is a copy of the JAX package's.  `span` marks a layer's
 boundary (the multiseq chunk and its upload, draws and collect; the
-tracked step's stages; global BA's stop reads and segment sums) as a
-range on the torch profiler's host timeline, beside the CUDA events its
-ops launch; with no profiler recording it costs one flag test.
+tracked step's stages; a compact global BA call; the BA core's stop
+reads and segment sums, in every solver that runs them) as a range on
+the torch profiler's host timeline, beside the CUDA events its ops
+launch; with no profiler recording it costs one flag test.
 `device_trace` records a `torch.profiler` trace (the host ops and the
 spans and, on the card, the CUDA kernels) and exports it as a Chrome
 trace, viewable in Perfetto or chrome://tracing, where the JAX package
@@ -27,6 +28,9 @@ _profiling = torch._C._autograd._profiler_enabled
 _range = torch._C._profiler._RecordFunctionFast
 _OFF = contextlib.nullcontext()
 
+# Every span's range is named `SPAN_PREFIX + name`, which no ATen op is.
+SPAN_PREFIX = "mslam/"
+
 
 def span(name: str):
     """A context manager that marks `name` on the profiler's host timeline
@@ -39,11 +43,12 @@ def span(name: str):
     with the kernel's correlation id) began inside it.  It is not a user
     annotation, so the profiler projects no copy of it onto the card's
     stream, and a reader of the device's events sees kernels alone; a
-    reader tells spans from ops by name.  Under `torch.func.vmap` it
-    opens once per call of the vmapped function, not once per row."""
+    reader tells spans from ops by their name's `SPAN_PREFIX`.  Under
+    `torch.func.vmap` it opens once per call of the vmapped function, not
+    once per row."""
     if not _profiling():
         return _OFF
-    return _range(name)
+    return _range(SPAN_PREFIX + name)
 
 
 class FrameTimer:

@@ -13,13 +13,12 @@ with the host's and the card's activity, from which the spans' figures
 are read).  Prints one JSON object, and writes it to `--out` if given:
 
 - `metrics`: the cell's per-layer metrics as `run.py --trace 1` reads them;
-- `spans`: `spans.table` per span name, `figures`: `spans.FIGURES` of the cell;
+- `spans`: `spans.table` per span name, `figures`: the `spans.FIGURES`
+  whose spans the window holds, per batched frame or call;
 - `idle_labels`: the idle gaps by innermost span and host op;
 - `idle_in_spans_pct`: the share of the idle time that opens inside a span;
 - `clock`: `spans.clock`, kernels that start before the host began their
   launch and by how much;
-- `gc_pause_s`: the seconds Python's garbage collector paused the host in
-  the span window, by generation;
 - `window_s_per_unit`: the device-only window's and the span window's wall
   time per batched frame or call (the second's excess is the cost of
   recording the host);
@@ -35,7 +34,6 @@ A program without spans gives the metrics and windows alone.
 from __future__ import annotations
 
 import argparse
-import gc
 import json
 import os
 import sys
@@ -55,6 +53,7 @@ def report(cell: dict, drv, repeats: int) -> dict:
     from port_bench import spans, trace
 
     name = cell["workload"]["name"]
+    prefix = spans.span_prefix()
     out = []
     for _ in range(repeats):
         work, units = drv.traced_work()
@@ -67,34 +66,22 @@ def report(cell: dict, drv, repeats: int) -> dict:
                 seen.append(int(stats.n_iterations))
                 return arena, stats
             drv.gba = counted
-        pauses = []                         # the collector's, in the window
-        t_gc = {}
-
-        def on_gc(phase, info):
-            if phase == "start":
-                t_gc[0] = time.perf_counter()
-            else:
-                pauses.append((info["generation"], time.perf_counter() - t_gc[0]))
-        gc.callbacks.append(on_gc)
         try:
             st = spans.record(work)
         finally:
-            gc.callbacks.remove(on_gc)
-        if gba is not None:
-            drv.gba = gba
+            if gba is not None:
+                drv.gba = gba
         tab = spans.table(st)
-        fig = spans.figures(name, tab, units)
+        fig = spans.figures(tab, units)
         idle = spans.idle_s(st)
         inside = sum(v["idle_s"] for v in tab.values())
         r = {"units": units, "metrics": metrics, "spans": tab, "figures": fig,
              "idle_labels": spans.idle_labels(st),
              "idle_in_spans_pct": 100.0 * inside / idle if idle else None,
              "clock": spans.clock(st),
-             "gc_pause_s": {g: sum(d for gen, d in pauses if gen == g)
-                            for g in sorted({gen for gen, _ in pauses})},
              "device_ops": tr.device_ops,
-             "span_in_device_ops": sorted({n for n, _ in tr.device_ops}
-                                          & spans.SPANS),
+             "span_in_device_ops": sorted(
+                 n for n, _ in tr.device_ops if prefix and n.startswith(prefix)),
              "window_s_per_unit": {"device_only": tr.window_s / units,
                                    "spans": st.window_s / units}}
         busy = metrics.get("fleet.busy_ms_per_frame", {}).get("value")

@@ -6,7 +6,8 @@ The port marks its layers' boundaries with
 profiler's timeline, recorded only while a profiler records host
 activity.  They are record functions of the function scope, not user
 annotations, so the profiler projects no copy of them onto the card's
-stream, and they are told from ATen's ops by name (`SPANS`).  A kernel
+stream, and they are told from ATen's ops by the prefix of their names
+(the port's `SPAN_PREFIX`), which `split` takes off.  A kernel
 belongs to every span open when its launch began on the host: its CUDA
 event and the runtime call that launched it share a correlation id.
 
@@ -16,9 +17,10 @@ to, per span name, its count, its host seconds, the device seconds of
 the kernels launched inside it, and the idle seconds of the device gaps
 that open while it is the innermost span open (a gap's start is put on
 the host's clock by the launch that ends it).  `FIGURES` are the
-per-layer figures of the benchmark's cells read from that table, per
-batched frame (fleet) or per call (global BA); each is None where its
-span is absent, as in a program without spans.
+per-layer figures read from that table, per unit of the traced window
+(a batched frame of a fleet, a call of global BA); each is None where
+its span is absent, as in a program without spans, so a trace gives the
+figures of the spans it holds.
 """
 
 from __future__ import annotations
@@ -29,11 +31,6 @@ from collections import defaultdict
 from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
-
-SPANS = frozenset({
-    "multiseq.chunk", "multiseq.upload", "prng.uniforms", "multiseq.collect",
-    "step", "step.detect", "track.match", "track.pnp", "track.keyframe",
-    "ba.global", "ba.stop_read", "ba.segment_sum"})
 
 Event = Tuple[str, int, int]            # (name, start ns, end ns)
 
@@ -46,15 +43,27 @@ class SpanTrace(NamedTuple):
     window_s: float         # the traced window, host clock
 
 
+def span_prefix() -> Optional[str]:
+    """The prefix of the port's span names; None for a program without
+    spans."""
+    try:
+        from modular_slam_tpu_torch.utils.profiling import SPAN_PREFIX
+    except ImportError:
+        return None
+    return SPAN_PREFIX
+
+
 def split(events: Iterable, window_s: float) -> SpanTrace:
     """A SpanTrace of kineto events (`prof.profiler.kineto_results.events()`
     or objects with the same methods).  User annotations, on the host and
     their projection onto the card (`gpu_user_annotation`), go to no list.
-    A kernel's launch is the start of the CUDA runtime or driver call
-    (`cuda*`, `cu*`) that carries its correlation id."""
+    A host event whose name begins with `span_prefix()` is a span, named
+    without it.  A kernel's launch is the start of the CUDA runtime or
+    driver call (`cuda*`, `cu*`) that carries its correlation id."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
+    prefix = span_prefix()
     dev, corr, spans, host, calls = [], [], [], [], {}
     for e in events:
         s = e.start_ns()
@@ -64,8 +73,8 @@ def split(events: Iterable, window_s: float) -> SpanTrace:
         if e.device_type() == cuda:
             dev.append(item)
             corr.append(e.correlation_id())
-        elif item[0] in SPANS:
-            spans.append(item)
+        elif prefix and item[0].startswith(prefix):
+            spans.append((item[0][len(prefix):], s, item[2]))
         else:
             host.append(item)
             if item[0].startswith("cu"):
@@ -216,37 +225,33 @@ def clock(tr: SpanTrace) -> dict:
                 for i in range(4)]}
 
 
-# name -> (cell, span, quantity, scale): the figure is
+# name -> (span, quantity, scale): the figure is
 # scale * table[span][quantity] / units
 FIGURES = {
-    "fleet.upload_host_ms": ("fr1_desk.fleet", "multiseq.upload", "host_s", 1e3),
-    "fleet.draws_host_ms": ("fr1_desk.fleet", "prng.uniforms", "host_s", 1e3),
-    "fleet.collect_host_ms": ("fr1_desk.fleet", "multiseq.collect", "host_s", 1e3),
-    "step.dispatch_host_ms": ("fr1_desk.fleet", "step", "host_s", 1e3),
-    "step.detect_ms": ("fr1_desk.fleet", "step.detect", "device_s", 1e3),
-    "step.match_ms": ("fr1_desk.fleet", "track.match", "device_s", 1e3),
-    "step.pnp_ms": ("fr1_desk.fleet", "track.pnp", "device_s", 1e3),
-    "step.keyframe_ms": ("fr1_desk.fleet", "track.keyframe", "device_s", 1e3),
-    "gba.stop_read_idle_ms": ("fr1_room.gba", "ba.stop_read", "idle_s", 1e3),
-    "gba.stop_reads_per_call": ("fr1_room.gba", "ba.stop_read", "count", 1.0),
-    "gba.segment_sum_span_ms": ("fr1_room.gba", "ba.segment_sum", "device_s", 1e3),
+    "fleet.upload_host_ms": ("multiseq.upload", "host_s", 1e3),
+    "fleet.draws_host_ms": ("prng.uniforms", "host_s", 1e3),
+    "fleet.collect_host_ms": ("multiseq.collect", "host_s", 1e3),
+    "step.dispatch_host_ms": ("step", "host_s", 1e3),
+    "step.detect_ms": ("step.detect", "device_s", 1e3),
+    "step.match_ms": ("track.match", "device_s", 1e3),
+    "step.pnp_ms": ("track.pnp", "device_s", 1e3),
+    "step.keyframe_ms": ("track.keyframe", "device_s", 1e3),
+    "gba.stop_read_idle_ms": ("ba.stop_read", "idle_s", 1e3),
+    "gba.stop_reads_per_call": ("ba.stop_read", "count", 1.0),
+    "gba.segment_sum_span_ms": ("ba.segment_sum", "device_s", 1e3),
 }
 
 
 def figure(name: str, tab: Dict[str, Dict[str, float]], units: int):
     """One of FIGURES from a `table`, per unit; None where its span is
     absent."""
-    _, span, quantity, scale = FIGURES[name]
+    span, quantity, scale = FIGURES[name]
     if span not in tab:
         return None
     return scale * tab[span][quantity] / units
 
 
-def figures(cell: str, tab: Dict[str, Dict[str, float]], units: int) -> dict:
-    """The FIGURES of a cell that its trace holds."""
-    out = {}
-    for name, (c, *_) in FIGURES.items():
-        v = figure(name, tab, units) if c == cell else None
-        if v is not None:
-            out[name] = v
-    return out
+def figures(tab: Dict[str, Dict[str, float]], units: int) -> dict:
+    """Every one of FIGURES whose span the table holds, per unit."""
+    out = {name: figure(name, tab, units) for name in FIGURES}
+    return {k: v for k, v in out.items() if v is not None}

@@ -13,9 +13,15 @@ import torch
 from port_bench import run as R
 from port_bench import spans, trace
 from port_bench.tests.conftest import tiny_fleet, tiny_gba
+from modular_slam_tpu_torch.utils.profiling import SPAN_PREFIX
 
 CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
 STAGES = ("step.detect", "track.match", "track.pnp", "track.keyframe")
+FLEET = {"fleet.upload_host_ms", "fleet.draws_host_ms",
+         "fleet.collect_host_ms", "step.dispatch_host_ms", "step.detect_ms",
+         "step.match_ms", "step.pnp_ms", "step.keyframe_ms"}
+GBA = {"gba.stop_read_idle_ms", "gba.stop_reads_per_call",
+       "gba.segment_sum_span_ms"}
 
 
 class Ev:
@@ -43,6 +49,11 @@ class Ev:
         return self._v[5]
 
 
+def Span(name, s, e):
+    """A span of the port, as the profiler names its range."""
+    return Ev(SPAN_PREFIX + name, s, e)
+
+
 def _launch(name, t, k0, k1, corr, api="cudaLaunchKernel"):
     """A launch at host time t and its device event, [k0, k1]."""
     return [Ev(api, t, t + 5, corr=corr), Ev(name, k0, k1, CUDA, corr)]
@@ -57,17 +68,17 @@ def _fleet_events():
     ns at s + 5; collect [920, 990].  The gaps: 75 ns from the copy's end
     in the upload, then 90, 80, 70, 60 in detect, match, pnp, keyframe of
     frame 1 and 90, 80, 70 in those of frame 2."""
-    ev = [Ev("multiseq.chunk", 0, 1000), Ev("multiseq.upload", 10, 60),
-          Ev("aten::copy_", 12, 58), Ev("prng.uniforms", 60, 80),
-          Ev("multiseq.collect", 920, 990)]
+    ev = [Span("multiseq.chunk", 0, 1000), Span("multiseq.upload", 10, 60),
+          Ev("aten::copy_", 12, 58), Span("prng.uniforms", 60, 80),
+          Span("multiseq.collect", 920, 990)]
     ev += _launch("Memcpy HtoD (Pinned -> Device)", 20, 20, 40, 1,
                   "cudaMemcpyAsync")
     corr = 2
     for base in (100, 500):
-        ev.append(Ev("step", base, base + 400))
+        ev.append(Span("step", base, base + 400))
         for i, name in enumerate(STAGES):
             s = base + 10 + 100 * i
-            ev.append(Ev(name, s, s + 90))
+            ev.append(Span(name, s, s + 90))
             ev += _launch(f"kernel_{name}", s + 5, s + 5, s + 15 + 10 * i,
                           corr)
             corr += 1
@@ -82,8 +93,13 @@ def test_user_annotations_never_reach_the_device_events():
     names = {n for n, _, _ in st.kernels}
     assert "my_annotation" not in names and len(st.kernels) == 9
     assert "my_annotation" not in {n for n, _, _ in st.spans + st.host}
+    assert {n for n, _, _ in st.spans} == set(STAGES) | {
+        "step", "multiseq.chunk", "multiseq.upload", "prng.uniforms",
+        "multiseq.collect"}
+    assert not any(n.startswith(SPAN_PREFIX) for n, _, _ in st.host)
     tr = trace.reduce(st.kernels, st.host, st.window_s)
-    assert not {n for n, _ in tr.device_ops} & (spans.SPANS | {"my_annotation"})
+    assert not any(n.startswith(SPAN_PREFIX) or n == "my_annotation"
+                   for n, _ in tr.device_ops)
     # the same busy time as the kernels alone give
     kernels_only = [e for e in _fleet_events()
                     if e.device_type() == CUDA and not e.is_user_annotation()]
@@ -93,15 +109,14 @@ def test_user_annotations_never_reach_the_device_events():
 
 
 def test_without_spans_the_labels_are_the_benchmarks():
-    ev = [e for e in _fleet_events() if e.name() not in spans.SPANS]
+    ev = [e for e in _fleet_events() if not e.name().startswith(SPAN_PREFIX)]
     st = spans.split(ev, 1e-6)
     assert st.spans == [] and spans.table(st) == {}
     ours = spans.idle_labels(st)
     theirs = trace.reduce(st.kernels, st.host, st.window_s).idle_gaps
     assert [n for n, _ in ours] == [n for n, _ in theirs]
     assert dict(ours) == pytest.approx(dict(theirs))
-    for cell in ("fr1_desk.fleet", "fr1_room.gba"):
-        assert spans.figures(cell, spans.table(st), 2) == {}
+    assert spans.figures(spans.table(st), 2) == {}
     for name in spans.FIGURES:
         assert spans.figure(name, {}, 2) is None
 
@@ -139,35 +154,33 @@ def test_idle_gaps_take_the_innermost_span_as_prefix():
 
 def test_the_eleven_figures_on_a_hand_made_trace():
     fleet = spans.split(_fleet_events(), 1e-6)
-    fig = spans.figures("fr1_desk.fleet", spans.table(fleet), 2)
+    fig = spans.figures(spans.table(fleet), 2)
     assert fig == pytest.approx({
         "fleet.upload_host_ms": 50e-6 / 2, "fleet.draws_host_ms": 20e-6 / 2,
         "fleet.collect_host_ms": 70e-6 / 2, "step.dispatch_host_ms": 800e-6 / 2,
         "step.detect_ms": 20e-6 / 2, "step.match_ms": 40e-6 / 2,
         "step.pnp_ms": 60e-6 / 2, "step.keyframe_ms": 80e-6 / 2})
-    ev = [Ev("ba.global", 0, 1000)]
+    ev = [Span("ba.global", 0, 1000)]
     corr = 1
     for it in range(3):
         base = 300 * it
-        ev += [Ev("ba.segment_sum", base + 10, base + 50)]
+        ev += [Span("ba.segment_sum", base + 10, base + 50)]
         ev += _launch("indexFuncLargeIndex", base + 20, base + 20, base + 40,
                       corr)
-        ev += [Ev("ba.stop_read", base + 100, base + 200),
+        ev += [Span("ba.stop_read", base + 100, base + 200),
                Ev("aten::_local_scalar_dense", base + 101, base + 199)]
         ev += _launch("Memcpy DtoH (Device -> Pinned)", base + 102,
                       base + 102, base + 105, corr + 1, "cudaMemcpyAsync")
         corr += 2
     gba = spans.table(spans.split(ev, 1e-6))
-    fig = spans.figures("fr1_room.gba", gba, 1)
+    fig = spans.figures(gba, 1)
     assert fig["gba.stop_reads_per_call"] == 3
     assert fig["gba.segment_sum_span_ms"] == pytest.approx(3 * 20e-6)
     # the gap after each read's copy (+105, up to the next iteration's
     # index_add at +320) opens in ba.stop_read; the last copy leaves none
     assert fig["gba.stop_read_idle_ms"] == pytest.approx(2 * 215e-6)
     assert gba["ba.segment_sum"]["idle_s"] == pytest.approx(3 * 62e-9)
-    assert set(fig) == {n for n, v in spans.FIGURES.items()
-                        if v[0] == "fr1_room.gba"}
-    assert spans.figures("fr1_desk.fleet", gba, 1) == {}
+    assert set(fig) == GBA
 
 
 def test_clock_check_counts_kernels_that_start_before_their_launch():
@@ -185,7 +198,7 @@ def test_idle_gaps_open_on_the_hosts_clock():
     first kernel opens at 95 on the card's timestamps, 105 on the host's
     (the second kernel's launch at 300 less the gap's 195), inside the
     stop read [100, 200] and the first launch's call [100, 105]."""
-    ev = ([Ev("ba.stop_read", 100, 200)] + _launch("k", 100, 90, 95, 1)
+    ev = ([Span("ba.stop_read", 100, 200)] + _launch("k", 100, 90, 95, 1)
           + _launch("k", 300, 290, 300, 2))
     st = spans.split(ev, 1e-6)
     assert spans.clock(st)["offset_us"] == 0.01
@@ -203,13 +216,13 @@ def test_spans_of_the_tiny_cells_on_the_cpu(make, monkeypatch):
     drv.setup()
     work, units = drv.traced_work()
     tab = spans.table(spans.record(work))
-    fig = {n: spans.figure(n, tab, units) for n, v in spans.FIGURES.items()
-           if v[0] == cell["workload"]["name"]}
-    assert all(v is not None for v in fig.values()), fig
+    fig = spans.figures(tab, units)
     if cell["workload"]["name"] == "fr1_room.gba":
+        assert set(fig) == GBA, fig
         assert tab["ba.global"]["count"] == units
         assert fig["gba.stop_reads_per_call"] >= 1
     else:
+        assert set(fig) == FLEET, fig
         assert tab["step"]["count"] == units
         assert tab["multiseq.chunk"]["count"] * drv.chunk == units
         assert fig["fleet.collect_host_ms"] > 0

@@ -63,11 +63,13 @@ def frames():
 
 
 def _spans(prof, names):
-    """[(name, start ns, end ns)] of the profiled ranges named in `names`,
-    by start."""
-    ev = [(e.name(), e.start_ns(), e.end_ns())
+    """[(name, start ns, end ns)] of the profiled spans named in `names`
+    (their ranges' names less `SPAN_PREFIX`), by start."""
+    n = len(profiling.SPAN_PREFIX)
+    ev = [(e.name()[n:], e.start_ns(), e.end_ns())
           for e in prof.profiler.kineto_results.events()
-          if e.name() in names]
+          if e.name().startswith(profiling.SPAN_PREFIX)
+          and e.name()[n:] in names]
     return sorted(ev, key=lambda x: x[1])
 
 
@@ -116,7 +118,7 @@ def test_spans_off_open_no_range(frames, monkeypatch):
     _track(frames)
     assert opened == []
     _track(frames, on_from=2)
-    assert opened.count("track.pnp") == 2
+    assert opened.count(profiling.SPAN_PREFIX + "track.pnp") == 2
 
 
 def test_single_stream_stage_spans_in_order_and_outputs_unchanged(frames):
